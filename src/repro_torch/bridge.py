@@ -1,0 +1,38 @@
+"""Carry the JAX package's weights into the port.
+
+The reference ``Model.init`` returns a pytree whose per-layer leaves are
+stacked per period (``stack/p0/attn/wq`` has a leading ``n_periods`` axis).
+A caller turns it to float32 numpy first, e.g.
+``jax.tree.map(lambda a: np.asarray(a, np.float32), params)``, so this
+module needs neither ``jax`` nor ``ml_dtypes``.  bf16 -> fp32 -> bf16 is
+exact, so bridged bf16 weights are bit-identical to the reference's.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+def _tensor(a, dtype, device):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        device=device, dtype=dtype)
+
+
+def params_from_numpy(tree, cfg: ModelConfig, *, dtype, device):
+    """The reference params ``tree`` (float32 numpy leaves) as the port's
+    params on ``device`` in ``dtype``: the stacked periods are split into
+    the port's flat list of layers, in layer order."""
+    def conv(node, index=None):
+        if isinstance(node, dict):
+            return {k: conv(v, index) for k, v in node.items()}
+        return _tensor(node if index is None else node[index], dtype, device)
+
+    stack = tree["stack"]
+    period = len(stack)
+    n_periods = cfg.num_layers // period
+    layers = [conv(stack[f"p{j}"], i)
+              for i in range(n_periods) for j in range(period)]
+    return {"embed": conv(tree["embed"]), "unembed": conv(tree["unembed"]),
+            "final_norm": conv(tree["final_norm"]), "layers": layers}

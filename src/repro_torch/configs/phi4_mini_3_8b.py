@@ -1,0 +1,17 @@
+"""Phi-4-mini 3.8B — dense, RoPE SwiGLU GQA. [arXiv:2412.08905; hf]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi4-mini-3.8b",
+    family="dense",
+    num_layers=32,
+    d_model=3_072,
+    num_heads=24,
+    num_kv_heads=8,
+    d_ff=8_192,
+    vocab_size=200_064,
+    head_dim=128,
+    activation="swiglu",
+    subquadratic=False,
+    source="arXiv:2412.08905; hf",
+)

@@ -1,0 +1,264 @@
+"""Core transformer layers on torch: RMSNorm, RoPE, GQA attention, MLPs.
+
+Port of ``src/repro/models/layers.py`` for the attention-only decoder.
+Parameters are plain dicts of tensors with the reference's names and
+layouts (``wq`` is ``(d, H, hd)``, ``wo`` is ``(H, hd, d)``, ...).  Compute
+runs in bf16 (``COMPUTE_DTYPE``: weights are cast to it before every
+projection), with fp32 norms, RoPE and softmax, exactly where the
+reference takes them.
+
+Caches are updated in place (the reference returns new arrays and the
+engine donates the old ones; mutating the tensor is the same thing here).
+Single-token cached decode picks its attention with ``decode_impl``:
+
+* ``"pallas"``: the hand-written CUDA decode kernel
+  (``repro_torch.kernels.decode_attention``); the name is the reference's,
+  kept so configurations carry across unchanged;
+* ``"sdpa"``: the plain masked-softmax path over the dense cache;
+* ``"paged"``: the CUDA paged-decode kernel over the global page pool
+  (``repro_torch.kernels.paged_attention``);
+* ``"paged_sdpa"``: gathers the slot's pages to a dense view and runs the
+  plain causal path.
+
+On a CPU tensor the two kernel wrappers run their plain PyTorch versions.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.paged_attention.ops import (gather_pages,
+                                                     paged_attention)
+
+COMPUTE_DTYPE = torch.bfloat16
+NEG_INF = -1e30
+
+# Queries are processed in blocks of this length so the (S x T) score matrix
+# is never fully materialised (reference layers.py:103).
+Q_CHUNK = 1024
+
+
+def _init(generator, shape, scale, dtype, device):
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (x * scale).to(dtype)
+
+
+# ---------------------------------------------------------------- norms ----
+
+def rmsnorm_init(d, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params, x, eps=1e-5):
+    """fp32 statistics, result in the input dtype."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * params["scale"].float()).to(dt)
+
+
+# ----------------------------------------------------------------- rope ----
+
+def rope_table(positions, head_dim, theta):
+    """positions: int (..., S) -> (cos, sin) each (..., S, head_dim//2) fp32.
+    The frequencies are computed in numpy float32, as the reference does."""
+    half = head_dim // 2
+    freqs = 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
+    freqs = torch.from_numpy(np.asarray(freqs, np.float32)).to(positions.device)
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B,S,H,hd); cos/sin: (B,S,half) or (S,half).  Half-split (not
+    interleaved) rotation in fp32, returned in x's dtype."""
+    half = x.shape[-1] // 2
+    if cos.dim() == 2:
+        cos = cos[None, :, None, :]
+        sin = sin[None, :, None, :]
+    else:
+        cos = cos[:, :, None, :]
+        sin = sin[:, :, None, :]
+    xf = x.float()
+    x1, x2 = xf[..., :half], xf[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------ attention ----
+
+def attention_init(generator, cfg, dtype, device):
+    d, h, k, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                   cfg.resolved_head_dim)
+    s_in = d ** -0.5
+    s_out = (h * hd) ** -0.5
+    return {
+        "norm": rmsnorm_init(d, dtype, device),
+        "wq": _init(generator, (d, h, hd), s_in, dtype, device),
+        "wk": _init(generator, (d, k, hd), s_in, dtype, device),
+        "wv": _init(generator, (d, k, hd), s_in, dtype, device),
+        "wo": _init(generator, (h, hd, d), s_out, dtype, device),
+    }
+
+
+def _sdpa(q, k, v, mask, q_per_kv):
+    """q: (B,S,H,hd); k,v: (B,T,K,hd); mask broadcastable to (B,K,G,S,T).
+    Scores in fp32 with the -1e30 fill; the probabilities are cast to the
+    value dtype before the PV product (reference layers.py:86-97)."""
+    b, s, h, hd = q.shape
+    kheads = k.shape[2]
+    q = q.reshape(b, s, kheads, q_per_kv, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", q, k).float()
+    scores = scores / math.sqrt(hd)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
+    return out.reshape(b, s, h, hd)
+
+
+def _sdpa_chunked(q, k, v, qpos, q_per_kv, *, q_chunk=Q_CHUNK):
+    """Memory-bounded causal attention (kv_pos <= q_pos), ``q_chunk``
+    queries at a time.  qpos: (B,S) int query positions.  The reference's
+    'full' and 'length' masks serve the encoder-decoder family, which the
+    port does not run yet."""
+    s = q.shape[1]
+    kv_pos = torch.arange(k.shape[1], device=q.device)
+
+    def block(q_blk, qp_blk):
+        mask = (kv_pos[None, None, None, None, :]
+                <= qp_blk[:, None, None, :, None])
+        return _sdpa(q_blk, k, v, mask, q_per_kv)
+
+    if s <= q_chunk:
+        return block(q, qpos)
+    return torch.cat([block(q[:, i:i + q_chunk], qpos[:, i:i + q_chunk])
+                      for i in range(0, s, q_chunk)], dim=1)
+
+
+def _project_out(out, params):
+    return torch.einsum("bshk,hkd->bsd", out,
+                        params["wo"].to(COMPUTE_DTYPE))
+
+
+def attention(params, x, cfg, *, positions=None, kv_cache=None,
+              write_index=None, decode_impl="sdpa", page_table=None):
+    """Causal GQA self-attention of the decoder.
+
+    x: (B,S,D) hidden states.
+    positions: (S,) or (B,S) int query positions (RoPE and causal mask).
+    kv_cache: dict(k=(B,T,K,hd), v=...), written in place: this call's K/V
+        land at ``write_index``, a Python int (a slice of S rows, clamped
+        into the cache as ``dynamic_update_slice`` clamps) or an int (B,)
+        tensor (one row per batch entry, S must be 1; entries outside the
+        cache write nothing).  Attention then spans the cache, masked by
+        position.  Under a paged ``decode_impl`` the cache is the global page
+        pool dict(k=(N,block,K,hd), v=...) indirected through ``page_table``
+        (B, W) int32, and row b's position p lives in
+        ``pool[page_table[b, p // block], p % block]``; unmapped entries
+        point at the trash page 0.
+    decode_impl: see the module docstring; multi-token calls always take the
+        plain path.
+    Returns (out, kv_cache_or_None).
+    """
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    g = cfg.q_heads_per_kv
+    xn = rmsnorm(params["norm"], x, cfg.norm_eps)
+    q = torch.einsum("bsd,dhk->bshk", xn, params["wq"].to(COMPUTE_DTYPE))
+    k = torch.einsum("bsd,dhk->bshk", xn, params["wk"].to(COMPUTE_DTYPE))
+    v = torch.einsum("bsd,dhk->bshk", xn, params["wv"].to(COMPUTE_DTYPE))
+
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    cos, sin = rope_table(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    qp = positions.to(torch.int32)
+    qp = qp.expand(b, s) if qp.dim() == 1 else qp
+
+    if kv_cache is not None and decode_impl in ("paged", "paged_sdpa"):
+        if s != 1:
+            raise ValueError("paged decode handles single-token steps only")
+        if page_table is None:
+            raise ValueError(f"decode_impl={decode_impl!r} needs a page_table")
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        block = ck.shape[1]
+        table = page_table.to(device=x.device, dtype=torch.int32)
+        pos = qp[:, 0].long()
+        # an index past the table reads its last entry, as the reference's
+        # gather clamps
+        col = torch.clamp(pos // block, max=table.shape[1] - 1)
+        page = table[torch.arange(b, device=x.device), col].long()
+        off = pos % block
+        ck[page, off] = k[:, 0].to(ck.dtype)
+        cv[page, off] = v[:, 0].to(cv.dtype)
+        lengths = qp[:, 0] + 1
+        if decode_impl == "paged":
+            out = paged_attention(q[:, 0].contiguous(), ck, cv, table,
+                                  lengths)[:, None]
+        else:
+            kd = gather_pages(ck, table).to(COMPUTE_DTYPE)
+            vd = gather_pages(cv, table).to(COMPUTE_DTYPE)
+            out = _sdpa_chunked(q, kd, vd, qp, g)
+        return _project_out(out, params), kv_cache
+
+    if kv_cache is None:
+        out = _sdpa_chunked(q, k, v, qp, g)
+        return _project_out(out, params), None
+
+    ck, cv = kv_cache["k"], kv_cache["v"]
+    t = ck.shape[1]
+    widx = 0 if write_index is None else write_index
+    if isinstance(widx, torch.Tensor) and widx.dim() == 1:
+        if s != 1:
+            raise ValueError("a (B,) write_index needs single-token steps")
+        widx = widx.to(device=x.device, dtype=torch.long)
+        rows = torch.arange(b, device=x.device)
+        inside = ((widx >= 0) & (widx < t))[:, None, None]
+        at = widx.clamp(0, t - 1)
+        ck[rows, at] = torch.where(inside, k[:, 0].to(ck.dtype), ck[rows, at])
+        cv[rows, at] = torch.where(inside, v[:, 0].to(cv.dtype), cv[rows, at])
+    else:
+        start = min(max(int(widx), 0), t - s)
+        ck[:, start:start + s] = k.to(ck.dtype)
+        cv[:, start:start + s] = v.to(cv.dtype)
+
+    if decode_impl == "pallas" and s == 1:
+        lengths = qp[:, 0] + 1
+        out = decode_attention(q[:, 0].contiguous(), ck, cv, lengths)[:, None]
+        return _project_out(out, params), kv_cache
+
+    out = _sdpa_chunked(q, ck.to(COMPUTE_DTYPE), cv.to(COMPUTE_DTYPE), qp, g)
+    return _project_out(out, params), kv_cache
+
+
+# ------------------------------------------------------------------ mlp ----
+
+def mlp_init(generator, cfg, dtype, device):
+    d, f = cfg.d_model, cfg.d_ff
+    p = {"norm": rmsnorm_init(d, dtype, device)}
+    if cfg.activation == "swiglu":
+        p["wg"] = _init(generator, (d, f), d ** -0.5, dtype, device)
+    p["wu"] = _init(generator, (d, f), d ** -0.5, dtype, device)
+    p["wd"] = _init(generator, (f, d), f ** -0.5, dtype, device)
+    return p
+
+
+def mlp(params, x, cfg):
+    xn = rmsnorm(params["norm"], x, cfg.norm_eps)
+    h = torch.einsum("bsd,df->bsf", xn, params["wu"].to(COMPUTE_DTYPE))
+    if cfg.activation == "swiglu":
+        gate = torch.einsum("bsd,df->bsf", xn,
+                            params["wg"].to(COMPUTE_DTYPE))
+        h = F.silu(gate) * h
+    elif cfg.activation == "squared_relu":
+        h = torch.square(F.relu(h))
+    else:
+        h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
+    return torch.einsum("bsf,fd->bsd", h, params["wd"].to(COMPUTE_DTYPE))

@@ -1,0 +1,181 @@
+"""The decoder model on torch: port of ``src/repro/models/model.py`` for the
+attention-only dense family (embed, then per layer RMSNorm + GQA attention
+and RMSNorm + MLP, final norm, untied unembed).
+
+Parameters are a dict: ``embed`` (V, D), ``unembed`` (D, V), ``final_norm``
+and ``layers``, a list of per-layer dicts ``{"attn": ..., "mlp": ...}``
+(the reference's per-period stack, split; ``repro_torch.bridge`` converts).
+Caches keep the reference's stacked layout at the public functions:
+``{"k": (P, B, T, K, hd), "v": ...}`` dense, ``{"k": (P, N, block, K, hd),
+...}`` paged, with P the number of layers; layer i works on the view
+``caches["k"][i]``.  A Python loop over the layers replaces ``lax.scan``.
+
+``prefill``/``prefill_batched``/``prefill_resume`` return fresh caches and
+leave their inputs as they were; ``decode`` updates ``caches`` in place (the
+reference donates them).  Logits come from a bf16 product with ``unembed``
+and are returned as fp32.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+
+def _unsupported(cfg: ModelConfig):
+    """The ROADMAP item that ports ``cfg``'s family, or None if the port
+    runs it now."""
+    if cfg.family in ("encdec", "vlm") or cfg.cross_attention or cfg.frontend:
+        return "encoder-decoder and VLM paths"
+    if cfg.family in ("hybrid", "ssm"):
+        return "SSM (models/ssm.py)"
+    if cfg.moe is not None or cfg.family == "moe":
+        return "MoE (models/moe.py)"
+    return None
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        item = _unsupported(cfg)
+        if item is not None:
+            raise NotImplementedError(
+                f"{cfg.name} ({cfg.family}) waits for the ROADMAP item "
+                f"'{item}'; the port runs attention-only dense models")
+        self.cfg = cfg
+        self.n_layers = cfg.num_layers
+
+    # ------------------------------------------------------------- init ----
+
+    def init(self, generator: torch.Generator, dtype=torch.float32,
+             device=None):
+        """Random weights with the reference's distributions and scales
+        (model.py:110-133, layers.py:71-83, 306-315), drawn from
+        ``generator`` on ``device`` (``cuda`` unless the caller names
+        another; the generator must live there too)."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        d, v = cfg.d_model, cfg.vocab_size
+        return {
+            "embed": L._init(generator, (v, d), 0.02, dtype, dev),
+            "unembed": L._init(generator, (d, v), d ** -0.5, dtype, dev),
+            "final_norm": L.rmsnorm_init(d, dtype, dev),
+            "layers": [{"attn": L.attention_init(generator, cfg, dtype, dev),
+                        "mlp": L.mlp_init(generator, cfg, dtype, dev)}
+                       for _ in range(self.n_layers)],
+        }
+
+    # ----------------------------------------------------------- caches ----
+
+    def _zeros(self, rows, cols, device):
+        cfg = self.cfg
+        shape = (self.n_layers, rows, cols, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=L.COMPUTE_DTYPE, device=device),
+                "v": torch.zeros(shape, dtype=L.COMPUTE_DTYPE, device=device)}
+
+    def cache_init(self, batch, max_len, device):
+        """Stacked dense KV caches (P, B, T, K, hd), zeros, bf16."""
+        return self._zeros(batch, max_len, device)
+
+    def paged_cache_init(self, num_pages, block, device):
+        """Global KV page pools (P, num_pages + 1, block, K, hd), zeros,
+        bf16: the +1 is the reserved trash page 0 (inactive slots write
+        there; never allocated)."""
+        return self._zeros(num_pages + 1, block, device)
+
+    # All three hold for every model the port builds (attention-only).
+    supports_paged_decode = True
+    supports_padded_prefill = True
+    supports_prefill_resume = True
+
+    # ------------------------------------------------------------ stack ----
+
+    def _run_stack(self, params, x, caches, *, positions, write_index,
+                   decode_impl="sdpa", page_table=None):
+        cfg = self.cfg
+        for i, lp in enumerate(params["layers"]):
+            kv = {"k": caches["k"][i], "v": caches["v"][i]}
+            h, _ = L.attention(lp["attn"], x, cfg, positions=positions,
+                               kv_cache=kv, write_index=write_index,
+                               decode_impl=decode_impl, page_table=page_table)
+            x = x + h
+            x = x + L.mlp(lp["mlp"], x, cfg)
+        return x
+
+    def _embed(self, params, tokens):
+        tokens = torch.as_tensor(tokens, device=params["embed"].device)
+        return params["embed"][tokens.long()].to(L.COMPUTE_DTYPE)
+
+    def _logits(self, params, x):
+        """x: (B,1,D) -> fp32 (B,V) from the bf16 product with unembed."""
+        x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        logits = torch.einsum("bsd,dv->bsv", x,
+                              params["unembed"].to(L.COMPUTE_DTYPE))
+        return logits[:, 0].float()
+
+    # ----------------------------------------------------------- serving ---
+
+    def prefill(self, params, batch, max_len=None):
+        """batch: {"tokens": (B,S) int}.  Returns (last_logits (B,V) fp32,
+        caches sized ``max_len``)."""
+        x = self._embed(params, batch["tokens"])
+        b, s = x.shape[0], x.shape[1]
+        caches = self.cache_init(b, max_len or s, x.device)
+        positions = torch.arange(s, device=x.device)
+        x = self._run_stack(params, x, caches, positions=positions,
+                            write_index=0)
+        return self._logits(params, x[:, -1:]), caches
+
+    def prefill_batched(self, params, tokens, lengths, max_len=None):
+        """Ragged prompt batch, each row right-padded to S; row i's logits
+        are taken at position ``lengths[i] - 1`` (model.py:366-398)."""
+        x = self._embed(params, tokens)
+        b, s = x.shape[0], x.shape[1]
+        caches = self.cache_init(b, max_len or s, x.device)
+        positions = torch.arange(s, device=x.device)
+        x = self._run_stack(params, x, caches, positions=positions,
+                            write_index=0)
+        lengths = torch.as_tensor(lengths, device=x.device).long()
+        idx = torch.clamp(lengths - 1, 0, s - 1)
+        x = x[torch.arange(b, device=x.device), idx][:, None]
+        return self._logits(params, x), caches
+
+    def prefill_resume(self, params, caches, tokens, start):
+        """Continue a prompt pass from position ``start``: ``caches`` holds
+        valid K/V below ``start``, and the suffix ``tokens`` (B, S) is
+        written from ``start`` on into a copy of it, so the donor stays
+        valid for the prefix cache that holds it.  Returns (last_logits
+        (B,V), caches)."""
+        caches = {n: t.clone() for n, t in caches.items()}
+        x = self._embed(params, tokens)
+        s = x.shape[1]
+        start = int(start)
+        positions = torch.arange(s, device=x.device) + start
+        x = self._run_stack(params, x, caches, positions=positions,
+                            write_index=start)
+        return self._logits(params, x[:, -1:]), caches
+
+    def decode(self, params, caches, tokens, cur_index, decode_impl="sdpa",
+               page_table=None):
+        """One decode step, updating ``caches`` in place.  tokens: (B,1)
+        int; cur_index: an int, or an int (B,) tensor for ragged continuous
+        batching.  ``"pallas"`` runs the CUDA decode kernel, ``"paged"``
+        the CUDA paged kernel over ``caches`` from :meth:`paged_cache_init`
+        and ``page_table`` (B, W) int32; ``"sdpa"``/``"paged_sdpa"`` are
+        the plain paths.  Returns (logits (B,V) fp32, caches)."""
+        x = self._embed(params, tokens)
+        b = x.shape[0]
+        if isinstance(cur_index, torch.Tensor) and cur_index.dim() == 1:
+            cur = cur_index.to(device=x.device, dtype=torch.int32)
+            positions = cur[:, None]
+        else:
+            cur = int(cur_index)
+            positions = torch.full((b, 1), cur, dtype=torch.int32,
+                                   device=x.device)
+        x = self._run_stack(params, x, caches, positions=positions,
+                            write_index=cur, decode_impl=decode_impl,
+                            page_table=page_table)
+        return self._logits(params, x), caches
+

@@ -1,0 +1,116 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+A CUDA kernel has no CPU mode, so these tests skip on a machine without a
+CUDA device (the kernels' arithmetic is tested on the CPU through the plain
+versions in tests/test_torch_kernels.py).  On the card:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
+        tests/test_torch_cuda.py
+
+(``--noconftest``: ``tests/conftest.py`` imports JAX, which a machine with
+only the port need not have.)
+
+Tolerances: 2e-5 in fp32, 2e-2 in bf16 (atol and rtol), the repo's kernel
+bounds; the model walk holds logits to 0.02 x the logit spread.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_reduced  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
+from repro_torch.kernels.paged_attention import ops as pops  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _t(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+        device=dev, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,hd", [(1, 64), (3, 128), (4, 32), (8, 128)])
+def test_decode_kernel_matches_plain(dev, g, hd, dtype):
+    rng = np.random.default_rng(g * hd)
+    b, t, kh = 4, 700, 2
+    q = _t(rng, (b, kh * g, hd), dtype, dev)
+    k, v = (_t(rng, (b, t, kh, hd), dtype, dev) for _ in range(2))
+    lengths = torch.tensor([0, 1, 257, t], dtype=torch.int32, device=dev)
+    before = dops.decode_attention.launches
+    out = dops.decode_attention(q, k, v, lengths)
+    assert dops.decode_attention.launches == before + 1
+    torch.testing.assert_close(out, dops.decode_attention_plain(
+        q, k, v, lengths), atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w", [1, 4, 68])
+def test_paged_kernel_matches_plain(dev, w, dtype):
+    rng = np.random.default_rng(w)
+    b, n, kh, g, hd = 4, 4 * 68 + 1, 8, 3, 128
+    q = _t(rng, (b, kh * g, hd), dtype, dev)
+    kp, vp = (_t(rng, (n, 16, kh, hd), dtype, dev) for _ in range(2))
+    table = torch.from_numpy(rng.integers(0, n, (b, w)).astype(np.int32))
+    table[1] = table[2]
+    table[3, -1] = n + 4                        # clamped into the pool
+    table = table.to(dev)
+    lengths = torch.tensor([0, 16 * w - 3, 16 * w, 16 * w + 5],
+                           dtype=torch.int32, device=dev)
+    out = pops.paged_attention(q, kp, vp, table, lengths)
+    torch.testing.assert_close(out, pops.paged_attention_plain(
+        q, kp, vp, table, lengths), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_wrapper_raises_on_strided_input(dev):
+    q = torch.zeros((2, 6, 64), device=dev)
+    k = torch.zeros((2, 64, 2, 128), device=dev)[..., ::2]
+    lengths = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        dops.decode_attention(q, k, k, lengths)
+
+
+@pytest.mark.parametrize("impls", [("pallas", "sdpa"),
+                                   ("paged", "paged_sdpa")])
+def test_model_walk_kernel_vs_plain(dev, impls):
+    cfg = get_reduced("phi4-mini-3.8b", num_heads=6, num_kv_heads=2,
+                      head_dim=128)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        torch.bfloat16, device=dev)
+    lengths = torch.tensor([37, 22], device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 48), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    logits, caches = model.prefill_batched(params, toks, lengths, max_len=96)
+    table = None
+    if impls[0] == "paged":
+        pool = model.paged_cache_init(8, 16, dev)
+        table = torch.tensor([[1, 2, 3], [4, 5, 0]], dtype=torch.int32,
+                             device=dev)
+        from repro_torch.serving.engine import adopt_prefill_pages
+        adopt_prefill_pages(pool, caches, 0, table[0], block=16)
+        adopt_prefill_pages(pool, caches, 1, table[1, :2], block=16)
+        caches = pool
+    other = {n: t.clone() for n, t in caches.items()}
+    tok = logits.argmax(-1)
+    for step in range(8):
+        cur = (lengths + step).to(torch.int32)
+        lk, _ = model.decode(params, caches, tok[:, None], cur,
+                             decode_impl=impls[0], page_table=table)
+        lp, _ = model.decode(params, other, tok[:, None], cur,
+                             decode_impl=impls[1], page_table=table)
+        spread = (lp.max(-1).values - lp.min(-1).values)
+        assert torch.all((lk - lp).abs().max(-1).values < 0.02 * spread)
+        tok = lp.argmax(-1)
