@@ -6,7 +6,7 @@
 Run from the root of a checkout; it needs one CUDA device and ``nvcc``.
 Phases, each of which fails the run (exit code 1) if it fails:
 
-1. Build every CUDA kernel of the serving path from ``src/repro_torch/csrc``.
+1. Build every CUDA kernel of the port from ``src/repro_torch/csrc``.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it (fp32 and bf16), and time the kernel, the
    plain version and a PyTorch library call with CUDA events.
@@ -16,6 +16,17 @@ Phases, each of which fails the run (exit code 1) if it fails:
    (``"paged"``), counting each kernel's launches.
 4. A 16-step forced decode walk on the full model: kernel path against
    plain path, within 0.02 x the logit spread.
+5. The flash-attention kernel of the teacher-forced loss against its plain
+   version over fp32/bf16, G 1..8, hd 32/64/96/128, causal or not and
+   ragged S <= T, then at the loss's shape (B=2, S=T=2048, H=24, K=8,
+   hd=128), timed beside ``scaled_dot_product_attention``.
+6. ``Model.train_loss`` on the full model at B=2, S=2048 with
+   ``use_flash=True`` (32 flash launches, no decode kernel) and without
+   (no kernel at all); the two losses agree within LOSS_BOUND.
+7. ``Trainer`` on Phi-4-mini at full width and 16 of its 32 layers (fp32
+   params, grads and Adam moments, ~45 GB): 1 warm-up and 3 measured steps
+   at B=1, S=2048 with remat; finite losses, a nonzero gradient norm,
+   params that moved, and a step with ``use_flash=True`` raises.
 
 It prints one JSON line of kernel records, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -34,11 +45,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12           # H100 SXM, float32 outside tensor cores
+BF16_FLOPS_PER_S = 989e12          # H100 SXM, bf16 tensor cores, dense
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 WALK_BOUND = 0.02                  # x logit spread (tests/test_engine_batching.py)
 MAX_LEN = 1088                     # 68 pages of 16 tokens
 SLOTS = 4
 N_LAYERS = 32
+LOSS_B, LOSS_S = 2, 2048           # the loss phase's batch
+# |loss(flash) - loss(plain)| on a loss near ln(200064) = 12.2, the CPU
+# parity tests' bound: the reference's own two paths differ by 9.3e-4 on
+# the reduced model; on the card the full model's gap measures 3e-5 (both
+# paths round P to bf16 before the product with V)
+LOSS_BOUND = 2e-3
+TRAIN_LAYERS = 16                  # of 32: fp32 params + grads + moments
 
 
 def fail(msg: str) -> None:
@@ -228,6 +247,172 @@ def phase_kernels(torch, F):
     return records
 
 
+# ------------------------------------------------------------- phase 5 ---
+
+def flash_inputs(torch, gen, b, s, t, h, kh, hd, dtype):
+    dev = "cuda"
+    q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, t, kh, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, t, kh, hd), generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def phase_flash(torch, F):
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    # every (dtype, G, hd) at a small ragged size, causal or not, T - S in
+    # {0, 37}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for g in range(1, 9):
+            for d in fops.HEAD_DIMS:
+                for causal in (True, False):
+                    for extra in (0, 37):
+                        s = 61 + 17 * g
+                        args = flash_inputs(torch, gen, 2, s, s + extra,
+                                            2 * g, 2, d, dtype)
+                        max_err(torch,
+                                fops.flash_attention(*args, causal=causal),
+                                fops.flash_attention_plain(*args,
+                                                           causal=causal),
+                                dtype)
+                        n += 1
+    torch.cuda.synchronize()
+    print(f"K3 flash_attention: {n} sweep cases agree (G 1..8, hd "
+          f"{fops.HEAD_DIMS}, causal and not, T - S in (0, 37))")
+    b, s, h, kh, hd = LOSS_B, LOSS_S, 24, 8, 128     # the loss's shape
+    err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = flash_inputs(torch, gen, b, s, s, h, kh, hd, dtype)
+        err[dtype] = max_err(torch, fops.flash_attention(*args),
+                             fops.flash_attention_plain(*args), dtype)
+        print(f"K3 flash_attention B={b} S=T={s} H={h} K={kh} hd={hd} "
+              f"{dtype}: max err {err[dtype]:.3g}")
+        del args
+    torch.cuda.synchronize()
+
+    dt = torch.bfloat16
+    sets = [flash_inputs(torch, gen, b, s, s, h, kh, hd, dt)
+            for _ in range(4)]          # 4 x 42 MB, beyond the 50 MB L2
+    lib_sets = [tuple(x.transpose(1, 2) for x in st) for st in sets]
+    sdpa = lambda q, k, v: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    moved = sum(x.numel() for x in sets[0]) * 2 + sets[0][0].numel() * 2
+    pairs = s * (s + 1) // 2                  # causal (query, key) pairs
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * b * h * hd * pairs / BF16_FLOPS_PER_S * 1e3
+    rec = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:80",
+        max_abs_err=err[dt],
+        ms=time_ms(torch, fops.flash_attention, sets),
+        plain_ms=time_ms(torch, fops.flash_attention_plain, sets, reps=20),
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=time_ms(torch, sdpa, lib_sets))
+    print(f"flash_attention: kernel {rec['ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; bytes "
+          f"{bytes_ms:.4f} ms), plain {rec['plain_ms']:.4f} ms, library "
+          f"{rec['library_ms']:.4f} ms (bf16, B={b}, S=T={s}, H={h}, K={kh},"
+          f" hd={hd}, causal)")
+    del sets, lib_sets
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ------------------------------------------------------------- phase 6 ---
+
+def phase_loss(torch, model, params, cfg, counters):
+    from repro_torch.training.data import DataConfig, make_batch
+
+    batch = make_batch(DataConfig(cfg.vocab_size, LOSS_S, LOSS_B, seed=0), 0,
+                       device="cuda")
+    losses, launches_of = {}, {}
+    for flash in (True, False):
+        model.use_flash = flash
+        with torch.no_grad():
+            model.train_loss(params, batch)          # warm-up
+            torch.cuda.synchronize()
+            for fn in counters:
+                fn.launches = 0
+            loss = model.train_loss(params, batch)
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in counters}
+            t0 = time.perf_counter()
+            for _ in range(3):
+                model.train_loss(params, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 3
+        model.use_flash = False
+        value = float(loss)
+        check(value == value and abs(value) < 1e3,
+              f"use_flash={flash}: loss {value}")
+        want = {fn.__name__: (N_LAYERS if flash and
+                              fn.__name__ == "flash_attention" else 0)
+                for fn in counters}
+        check(launches == want, f"use_flash={flash}: launches {launches}, "
+              f"expected {want}")
+        losses[flash] = value
+        launches_of.update({k: v for k, v in launches.items() if v})
+        print(f"loss use_flash={flash}: {value:.6f} (B={LOSS_B}, "
+              f"S={LOSS_S}, {N_LAYERS} layers), {wall * 1e3:.1f} ms per "
+              f"call, launches {launches}")
+    gap = abs(losses[True] - losses[False])
+    check(gap < LOSS_BOUND, f"flash and plain losses differ by {gap:.4g} "
+          f">= {LOSS_BOUND}")
+    print(f"loss gap |flash - plain| = {gap:.4g} (bound {LOSS_BOUND})")
+    return launches_of
+
+
+# ------------------------------------------------------------- phase 7 ---
+
+def phase_train(torch, cfg, counters):
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.training.train_loop import TrainConfig, Trainer
+
+    tcfg = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS)
+    shape = ShapeConfig("train", LOSS_S, 1, "train")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(tcfg, shape, TrainConfig(remat=True), seed=0, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(tr.state["params"]))
+    print(f"trainer: {tcfg.num_layers} layers, {n_params / 1e9:.3f} B fp32 "
+          f"params, init {time.perf_counter() - t0:.1f} s")
+    probe = tr.state["params"]["layers"][0]["attn"]["wq"][0, 0].clone()
+    for fn in counters:
+        fn.launches = 0
+    hist = tr.run(4)
+    check(all(fn.launches == 0 for fn in counters),
+          f"trainer launched kernels: {[fn.launches for fn in counters]}")
+    for h in hist:
+        check(h["loss"] == h["loss"] and abs(h["loss"]) < 1e3,
+              f"step {h['step']}: loss {h['loss']}")
+        check(h["grad_norm"] > 0 and h["grad_norm"] == h["grad_norm"],
+              f"step {h['step']}: grad norm {h['grad_norm']}")
+    moved = tr.state["params"]["layers"][0]["attn"]["wq"][0, 0]
+    check(not torch.equal(moved, probe), "the params did not move")
+    step = sum(h["step_time"] for h in hist[1:]) / 3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train: losses {[round(h['loss'], 4) for h in hist]}, grad norms "
+          f"{[round(h['grad_norm'], 4) for h in hist]}, step "
+          f"{step * 1e3:.1f} ms ({[round(h['step_time'] * 1e3, 1) for h in hist[1:]]}"
+          f"), {LOSS_S / step:.1f} tokens/s, peak memory {peak:.2f} GiB")
+    tr.model.use_flash = True
+    try:
+        tr.run(1)
+    except RuntimeError as e:
+        check("no gradient" in str(e), f"use_flash step raised {e!r}")
+    else:
+        fail("a train step with use_flash=True did not raise")
+    check(len(tr.history) == 4, "the raising step was recorded")
+    print("train: a step with use_flash=True raises (no gradient)")
+    del tr
+
+
 # ------------------------------------------------------------- phase 3 ---
 
 def template_prompt(template: int, n: int, vocab: int):
@@ -370,7 +555,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build, decode_attention, paged_attention
+    from repro_torch.kernels import (build, decode_attention, flash_attention,
+                                     paged_attention)
     from repro_torch.models import Model
 
     gpu = gpu_line()
@@ -402,7 +588,7 @@ def main() -> int:
           f"H={cfg.num_heads} K={cfg.num_kv_heads} vocab={cfg.vocab_size}, "
           f"{n_params / 1e9:.3f} B params bf16, init "
           f"{time.perf_counter() - t0:.1f} s")
-    counters = (decode_attention, paged_attention)
+    counters = (decode_attention, paged_attention, flash_attention)
     t0 = time.perf_counter()
     launches = phase_slice(torch, model, params, cfg, counters)
     print(f"phase 3: slice served ({time.perf_counter() - t0:.1f} s)")
@@ -410,6 +596,19 @@ def main() -> int:
     phase_walk(torch, model, params, cfg)
     print(f"phase 4: forced walks within bound ({time.perf_counter() - t0:.1f}"
           f" s)")
+    t0 = time.perf_counter()
+    records.append(phase_flash(torch, F))
+    print(f"phase 5: flash kernel agrees with its plain version "
+          f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    launches.update(phase_loss(torch, model, params, cfg, counters))
+    print(f"phase 6: teacher-forced loss, flash and plain "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_train(torch, cfg, counters)
+    print(f"phase 7: trainer steps ({time.perf_counter() - t0:.1f} s)")
 
     for r in records:
         r["launches"] = launches[r["name"]]

@@ -16,8 +16,10 @@ from repro_torch.configs.base import ModelConfig
 
 
 def _tensor(a, dtype, device):
-    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
-        device=device, dtype=dtype)
+    # a copy: the port updates params in place, and a numpy view of a JAX
+    # array shares the reference's buffer
+    return torch.from_numpy(np.array(a, np.float32)).to(device=device,
+                                                         dtype=dtype)
 
 
 def params_from_numpy(tree, cfg: ModelConfig, *, dtype, device):
@@ -36,3 +38,15 @@ def params_from_numpy(tree, cfg: ModelConfig, *, dtype, device):
               for i in range(n_periods) for j in range(period)]
     return {"embed": conv(tree["embed"]), "unembed": conv(tree["unembed"]),
             "final_norm": conv(tree["final_norm"]), "layers": layers}
+
+
+def opt_state_from_numpy(tree, cfg: ModelConfig, *, device):
+    """The reference optimizer state ``tree`` ({"m", "v": params-shaped
+    float32 numpy trees, "step": int}) as the port's: fp32 moments in the
+    port's layout and an int32 0-d step on ``device``."""
+    return {"m": params_from_numpy(tree["m"], cfg, dtype=torch.float32,
+                                   device=device),
+            "v": params_from_numpy(tree["v"], cfg, dtype=torch.float32,
+                                   device=device),
+            "step": torch.tensor(int(np.asarray(tree["step"])),
+                                 dtype=torch.int32, device=device)}

@@ -2,8 +2,9 @@
 
 ``get_config(name)`` returns the full published config; ``get_reduced(name)``
 returns a tiny same-family config for CPU tests.  The port runs the
-attention-only dense family, so the registry holds phi4-mini only; the other
-architectures join as their model families are ported (ROADMAP.md).
+attention-only dense family, so the registry holds phi4-mini (the serving
+and training slices) and stablelm-3b (the training example's base); the
+other architectures join as their model families are ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from repro_torch.configs.base import (  # noqa: F401
 
 _MODULES = {
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
+    "stablelm-3b": "repro_torch.configs.stablelm_3b",
 }
 
 

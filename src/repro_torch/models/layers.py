@@ -20,7 +20,11 @@ Single-token cached decode picks its attention with ``decode_impl``:
 * ``"paged_sdpa"``: gathers the slot's pages to a dense view and runs the
   plain causal path.
 
-On a CPU tensor the two kernel wrappers run their plain PyTorch versions.
+The no-cache causal call of the teacher-forced loss runs the CUDA flash
+kernel (``repro_torch.kernels.flash_attention``) under ``use_flash``, on the
+reference's condition (S == T and S % 128 == 0), else ``_sdpa_chunked``.
+
+On a CPU tensor the kernel wrappers run their plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import (gather_pages,
                                                      paged_attention)
 
@@ -147,7 +152,8 @@ def _project_out(out, params):
 
 
 def attention(params, x, cfg, *, positions=None, kv_cache=None,
-              write_index=None, decode_impl="sdpa", page_table=None):
+              write_index=None, use_flash=False, decode_impl="sdpa",
+              page_table=None):
     """Causal GQA self-attention of the decoder.
 
     x: (B,S,D) hidden states.
@@ -162,6 +168,8 @@ def attention(params, x, cfg, *, positions=None, kv_cache=None,
         (B, W) int32, and row b's position p lives in
         ``pool[page_table[b, p // block], p % block]``; unmapped entries
         point at the trash page 0.
+    use_flash: without a cache, run the flash kernel when S % 128 == 0
+        (reference layers.py:270); it has no gradient.
     decode_impl: see the module docstring; multi-token calls always take the
         plain path.
     Returns (out, kv_cache_or_None).
@@ -209,7 +217,11 @@ def attention(params, x, cfg, *, positions=None, kv_cache=None,
         return _project_out(out, params), kv_cache
 
     if kv_cache is None:
-        out = _sdpa_chunked(q, k, v, qp, g)
+        if use_flash and s == k.shape[1] and s % 128 == 0:
+            out = flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=True)
+        else:
+            out = _sdpa_chunked(q, k, v, qp, g)
         return _project_out(out, params), None
 
     ck, cv = kv_cache["k"], kv_cache["v"]

@@ -13,11 +13,15 @@ Caches keep the reference's stacked layout at the public functions:
 ``prefill``/``prefill_batched``/``prefill_resume`` return fresh caches and
 leave their inputs as they were; ``decode`` updates ``caches`` in place (the
 reference donates them).  Logits come from a bf16 product with ``unembed``
-and are returned as fp32.
+and are returned as fp32.  ``train_loss`` is the teacher-forced
+cross-entropy; with ``use_flash`` set its attention runs the CUDA flash
+kernel, which has no gradient (as in the reference, which trains without
+it).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -45,6 +49,7 @@ class Model:
                 f"'{item}'; the port runs attention-only dense models")
         self.cfg = cfg
         self.n_layers = cfg.num_layers
+        self.use_flash = False   # the loss's attention on the flash kernel
 
     # ------------------------------------------------------------- init ----
 
@@ -92,17 +97,32 @@ class Model:
 
     # ------------------------------------------------------------ stack ----
 
-    def _run_stack(self, params, x, caches, *, positions, write_index,
-                   decode_impl="sdpa", page_table=None):
-        cfg = self.cfg
+    def _run_stack(self, params, x, caches, *, positions, write_index=None,
+                   decode_impl="sdpa", page_table=None, remat=False):
+        """The layers in order.  ``caches=None`` is the loss's pass (no
+        cache, nothing written); ``remat`` recomputes each layer in the
+        backward pass instead of keeping its activations (the reference
+        checkpoints the scan body, model.py:228-229)."""
         for i, lp in enumerate(params["layers"]):
-            kv = {"k": caches["k"][i], "v": caches["v"][i]}
-            h, _ = L.attention(lp["attn"], x, cfg, positions=positions,
-                               kv_cache=kv, write_index=write_index,
-                               decode_impl=decode_impl, page_table=page_table)
-            x = x + h
-            x = x + L.mlp(lp["mlp"], x, cfg)
+            kv = None if caches is None else {"k": caches["k"][i],
+                                              "v": caches["v"][i]}
+            args = (lp, x, kv, positions, write_index, decode_impl,
+                    page_table)
+            if remat:
+                x = checkpoint(self._layer, *args, use_reentrant=False)
+            else:
+                x = self._layer(*args)
         return x
+
+    def _layer(self, lp, x, kv, positions, write_index, decode_impl,
+               page_table):
+        cfg = self.cfg
+        h, _ = L.attention(lp["attn"], x, cfg, positions=positions,
+                           kv_cache=kv, write_index=write_index,
+                           use_flash=self.use_flash, decode_impl=decode_impl,
+                           page_table=page_table)
+        x = x + h
+        return x + L.mlp(lp["mlp"], x, cfg)
 
     def _embed(self, params, tokens):
         tokens = torch.as_tensor(tokens, device=params["embed"].device)
@@ -114,6 +134,18 @@ class Model:
         logits = torch.einsum("bsd,dv->bsv", x,
                               params["unembed"].to(L.COMPUTE_DTYPE))
         return logits[:, 0].float()
+
+    # ------------------------------------------------------------- train ---
+
+    def train_loss(self, params, batch, *, remat=True):
+        """Next-token cross-entropy of ``batch["tokens"]`` (B,S) int, a
+        0-d fp32 tensor on the params' device (model.py:275-288; the dense
+        family has no MoE aux loss and no frontend offset)."""
+        x = self._embed(params, batch["tokens"])
+        x = self._run_stack(params, x, None, positions=None, remat=remat)
+        x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        tokens = torch.as_tensor(batch["tokens"], device=x.device).long()
+        return _chunked_ce(x[:, :-1], tokens[:, 1:], params["unembed"])
 
     # ----------------------------------------------------------- serving ---
 
@@ -179,3 +211,35 @@ class Model:
                             page_table=page_table)
         return self._logits(params, x), caches
 
+
+LOSS_CHUNK = 512
+
+
+def _chunked_ce(x, tgt, unembed, chunk=LOSS_CHUNK):
+    """Cross-entropy without the full (B,S,V) logits: ``chunk`` positions at
+    a time, each chunk checkpointed so the backward pass stays chunk-sized
+    too (model.py:530-565).  Logits from a bf16 product with ``unembed``,
+    log-sum-exp in fp32; the padded tail has weight 0."""
+    b, s, _ = x.shape
+    w_bf16 = unembed.to(L.COMPUTE_DTYPE)
+
+    def block(xb, tb, wb):
+        logits = torch.einsum("bsd,dv->bsv", xb, w_bf16).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, tb[..., None])[..., 0]
+        return torch.sum((logz - ll) * wb), torch.sum(wb)
+
+    w = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    if s <= chunk:
+        tot, cnt = checkpoint(block, x, tgt, w, use_reentrant=False)
+        return tot / cnt
+    pad = (-s) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        tgt = torch.nn.functional.pad(tgt, (0, pad))
+        w = torch.nn.functional.pad(w, (0, pad))
+    tots, cnts = zip(*(checkpoint(block, x[:, i:i + chunk],
+                                  tgt[:, i:i + chunk], w[:, i:i + chunk],
+                                  use_reentrant=False)
+                       for i in range(0, x.shape[1], chunk)))
+    return torch.sum(torch.stack(tots)) / torch.sum(torch.stack(cnts))

@@ -20,7 +20,7 @@ ROOT = Path(__file__).resolve().parents[1]
 REF, PORT = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
 
 COPIES = [
-    "configs/base.py", "configs/phi4_mini_3_8b.py",
+    "configs/base.py", "configs/phi4_mini_3_8b.py", "configs/stablelm_3b.py",
     "core/radix.py", "core/affinity.py", "core/router.py",
     "core/saturation.py", "core/metrics.py", "core/latency.py",
     "core/planner.py", "core/poa.py", "core/controller.py",
@@ -73,8 +73,8 @@ def test_only_the_control_plane_drops_a_branch():
 
 
 def test_registry_functions_are_copies():
-    """The port's registry holds phi4-mini only; its lookup functions are
-    the reference's."""
+    """The port's registry holds the dense configs it runs; its lookup
+    functions are the reference's."""
     def functions(path):
         tree = ast.parse(path.read_text())
         return {n.name: ast.dump(n) for n in tree.body

@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pops  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 
@@ -80,6 +81,56 @@ def test_wrapper_raises_on_strided_input(dev):
     lengths = torch.ones(2, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         dops.decode_attention(q, k, k, lengths)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g,hd,s,extra", [(1, 32, 64, 0), (3, 128, 200, 37),
+                                          (2, 96, 128, 0), (8, 64, 77, 37)])
+def test_flash_kernel_matches_plain(dev, g, hd, s, extra, causal, dtype):
+    rng = np.random.default_rng(g * hd + s)
+    b, kh = 2, 2
+    q = _t(rng, (b, s, kh * g, hd), dtype, dev)
+    k, v = (_t(rng, (b, s + extra, kh, hd), dtype, dev) for _ in range(2))
+    before = fops.flash_attention.launches
+    out = fops.flash_attention(q, k, v, causal=causal)
+    assert fops.flash_attention.launches == before + 1
+    torch.testing.assert_close(out, fops.flash_attention_plain(
+        q, k, v, causal=causal), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_flash_wrapper_raises(dev):
+    q = torch.zeros((1, 128, 4, 64), device=dev, dtype=torch.bfloat16)
+    k = torch.zeros((1, 128, 2, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        fops.flash_attention(q.clone().requires_grad_(), k, k)
+    with torch.no_grad():           # no gradient needed: the kernel runs
+        fops.flash_attention(q.clone().requires_grad_(), k, k)
+    with pytest.raises(ValueError, match="T >= S"):
+        fops.flash_attention(q, k[:, :100], k[:, :100])
+    with pytest.raises(ValueError, match="contiguous"):
+        fops.flash_attention(q, k.transpose(1, 2).contiguous()
+                             .transpose(1, 2), k)
+    hd80 = torch.zeros((1, 128, 2, 80), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no kernel built"):
+        fops.flash_attention(hd80, hd80, hd80)
+
+
+def test_train_loss_flash_kernel_vs_plain(dev):
+    cfg = get_reduced("phi4-mini-3.8b", num_heads=6, num_kv_heads=2,
+                      head_dim=128)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        torch.bfloat16, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 256), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    with torch.no_grad():
+        plain = model.train_loss(params, {"tokens": toks})
+        model.use_flash = True
+        before = fops.flash_attention.launches
+        flash = model.train_loss(params, {"tokens": toks})
+    assert fops.flash_attention.launches == before + cfg.num_layers
+    assert abs(float(flash) - float(plain)) < 2e-3
 
 
 @pytest.mark.parametrize("impls", [("pallas", "sdpa"),

@@ -19,6 +19,10 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.serving.control_plane import ControlPlane  # noqa: E402
 from repro_torch.serving.disagg import DisaggregatedCluster  # noqa: E402
 from repro_torch.serving.engine import DecodeEngine, PrefillEngine  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.training.data import (DataConfig, batch_for_model,  # noqa: E402
+                                       batch_iterator, make_batch)
+from repro_torch.training.train_loop import Trainer  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -92,3 +96,33 @@ def test_sanitizer_is_not_ported_yet(cpu_model):
     with pytest.raises(NotImplementedError, match="port sanitizer"):
         ControlPlane(2, sanitize=True)
     assert ControlPlane(2).sanitizer is None
+
+
+TRAIN_SHAPE = ShapeConfig("t", 32, 2, "train")
+
+
+def test_training_entry_points_default_to_cuda(no_cuda):
+    cfg = get_reduced("phi4-mini-3.8b")
+    dc = DataConfig(cfg.vocab_size, 32, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, TRAIN_SHAPE)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_batch(dc, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        next(batch_iterator(dc))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batch_for_model(cfg, TRAIN_SHAPE, 0)
+
+
+def test_training_on_the_cpu_only_when_named(cpu_model):
+    model, params = cpu_model
+    cfg = model.cfg
+    batch = make_batch(DataConfig(cfg.vocab_size, 32, 2), 0, device="cpu")
+    assert batch["tokens"].device == torch.device("cpu")
+    with torch.no_grad():
+        loss = model.train_loss(params, batch)
+    assert loss.device == torch.device("cpu") and torch.isfinite(loss)
+    tr = Trainer(cfg, TRAIN_SHAPE, device="cpu")
+    assert tr.device == torch.device("cpu")
+    assert all(t.device == torch.device("cpu") for t in
+               (tr.state["params"]["embed"], tr.state["opt"]["step"]))
