@@ -1,0 +1,236 @@
+"""A/B of the port's paged-decode (K2) and flash-attention (K3) kernels:
+a parent commit's CUDA sources against this tree's, on one GPU, in turns.
+
+Stage the parent's sources first (``build/`` is git-ignored), then run:
+
+    mkdir -p build/parent_csrc
+    git archive <parent> src/repro_torch/csrc \
+        | tar -x -C build/parent_csrc --strip-components=3
+    PYTHONPATH=src python benchmarks/bench_torch_attention_ab.py \
+        [--parent build/parent_csrc] [--json reports/ab.json]
+
+The parent's sources are built into ``build/ab_parent/`` with the same
+``nvcc`` flags and ``ctypes`` binding as ``repro_torch.kernels.build``;
+this tree's go to ``build/kernels/`` as usual.  Both versions get the shapes
+and input rotation of ``chip_smoke.py`` phases 2 and 5 (K2: bf16, 4 slots,
+G = 3, hd = 128, W = 68 pages of 16, lengths 1041/913/760/577, 8 input
+sets; K3: bf16, B=2, S=T=2048, H=24, K=8, hd=128, causal, 4 input sets),
+are checked against the plain version on the first set, and are timed in
+the order parent, new, new, parent, each turn in two ways:
+
+* ``graph_ms``: 60 launches rotating over the input sets, captured in one
+  CUDA graph, its replay timed with CUDA events (device time, without the
+  host's time to issue the calls);
+* ``kernel_ms``: the mean duration of the kernel itself in a
+  ``torch.profiler`` trace of 30 launches.
+
+Both versions are called through the same thin ``ctypes`` launcher with
+preallocated outputs and scratch, so the Python wrappers' cost is in
+neither.  Needs a CUDA device, and fails if the parent's directory is
+missing.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+REPS = 60
+
+
+def graph_ms(torch, fn, sets, reps=REPS):
+    for args in sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(*sets[i % len(sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_ms(torch, fn, sets, needle, reps=30):
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(reps):
+            fn(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and needle in e.name]
+    if len(times) != reps:
+        raise SystemExit(f"bench: {len(times)} '{needle}' kernels traced for "
+                         f"{reps} launches")
+    return sum(times) / len(times) / 1e3
+
+
+def bind(lib_path, name, n_ptr_head, n_int, tail):
+    lib = ctypes.CDLL(str(lib_path))
+    fn = getattr(lib, f"{name}_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr_head + [ctypes.c_int] * n_int
+                   + [ctypes.c_void_p] + tail)
+    return fn
+
+
+def paged_launcher(torch, lib_path, src_dir, pops):
+    """A launcher of the paged kernel in ``lib_path``: the split ABI
+    (scratch, counters, splits, pages per split after the stream) when the
+    sources hold it, else the one-block-per-(slot, KV head) ABI."""
+    split_abi = (Path(src_dir) / "decode_split.cuh").exists()
+    tail = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 if split_abi else []
+    fn = bind(lib_path, "paged_attention", 6, 8, tail)
+    counters = torch.zeros(4096, dtype=torch.int32, device="cuda")
+
+    def launch(q, kp, vp, table, lengths, out):
+        b, h, hd = q.shape
+        n, block, kh, _ = kp.shape
+        w = table.shape[1]
+        extra = []
+        if split_abi:
+            plan = pops.split_plan(b, w, block, kh, h // kh, hd)
+            partial = torch.empty(plan.partial_shape, dtype=torch.float32,
+                                  device="cuda")
+            extra = [partial.data_ptr(), counters.data_ptr(), plan.splits,
+                     plan.chunk_pages]
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
+                lengths.data_ptr(), out.data_ptr(), b, n, block, w, kh,
+                h // kh, hd, 1, stream, *extra)
+        if rc:
+            raise RuntimeError(f"paged_attention launch: {rc}")
+        return out
+    return launch
+
+
+def flash_launcher(torch, lib_path):
+    fn = bind(lib_path, "flash_attention", 4, 8, [])
+
+    def launch(q, k, v, out):
+        b, s, h, hd = q.shape
+        t, kh = k.shape[1], k.shape[2]
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                s, t, kh, h // kh, hd, 1, 1, stream)
+        if rc:
+            raise RuntimeError(f"flash_attention launch: {rc}")
+        return out
+    return launch
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", default=str(ROOT / "build" / "parent_csrc"))
+    ap.add_argument("--json", default=None, help="also write the results here")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_torch_attention_ab: needs a CUDA device", file=sys.stderr)
+        return 2
+    parent = Path(args.parent)
+    if not (parent / "paged_attention.cu").is_file():
+        print(f"bench_torch_attention_ab: no parent sources in {parent}; "
+              f"stage them with git archive (see the docstring)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.paged_attention import ops as pops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    names = ("paged_attention", "flash_attention")
+    libs = {"parent": build.build_all(names, parent,
+                                      ROOT / "build" / "ab_parent"),
+            "new": build.build_all(names)}
+    srcs = {"parent": parent, "new": build.CSRC}
+    for ver, paths in libs.items():
+        for name, path in paths.items():
+            log = path.with_suffix(".log").read_text()
+            for line in cs.ptxas_lines(log, {
+                    "paged_attention": "13__nv_bfloat16Li3ELi128E",
+                    "flash_attention": "flash_bf16_kernelILi128E"}[name]):
+                if "Used" in line or "spill" in line or "arn" in line:
+                    print(f"{ver} {name}: {line}")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    h, kh, hd, n = 24, 8, 128, cs.SLOTS * 68 + 1
+    lens = [1041, 913, 760, 577]
+    psets = []
+    for _ in range(8):
+        q, kp, vp, _, lengths = cs.paged_inputs(torch, gen, cs.SLOTS, n, 68, h,
+                                                kh, hd, torch.bfloat16, lens)
+        table = (1 + torch.randperm(n - 1, generator=gen, device="cuda")
+                 [:cs.SLOTS * 68]).to(torch.int32).reshape(cs.SLOTS, 68)
+        psets.append((q, kp, vp, table.contiguous(), lengths,
+                      torch.empty_like(q)))
+    fsets = []
+    for _ in range(4):
+        q, k, v = cs.flash_inputs(torch, gen, cs.LOSS_B, cs.LOSS_S, cs.LOSS_S,
+                                  h, kh, hd, torch.bfloat16)
+        fsets.append((q, k, v, torch.empty_like(q)))
+
+    kernels = {
+        "paged_attention": dict(
+            sets=psets, plain=lambda s: pops.paged_attention_plain(*s[:5]),
+            make=lambda ver: paged_launcher(torch, libs[ver]["paged_attention"],
+                                            srcs[ver], pops),
+            needle="paged_"),
+        "flash_attention": dict(
+            sets=fsets, plain=lambda s: fops.flash_attention_plain(*s[:3]),
+            make=lambda ver: flash_launcher(torch,
+                                            libs[ver]["flash_attention"]),
+            needle="flash_bf16_kernel"),
+    }
+    results = {"gpu": gpu, "kernels": {}}
+    for name, kd in kernels.items():
+        launch = {ver: kd["make"](ver) for ver in ("parent", "new")}
+        want = kd["plain"](kd["sets"][0]).float()
+        errs = {}
+        for ver, fn in launch.items():
+            got = fn(*kd["sets"][0]).float()
+            torch.cuda.synchronize()
+            errs[ver] = float((got - want).abs().max())
+            if not (errs[ver] <= 2e-2 and bool(torch.isfinite(got).all())):
+                raise SystemExit(f"bench: {ver} {name} disagrees with the "
+                                 f"plain version: max err {errs[ver]}")
+        turns = []
+        for ver in ("parent", "new", "new", "parent"):
+            turns.append(dict(
+                version=ver,
+                graph_ms=graph_ms(torch, launch[ver], kd["sets"]),
+                kernel_ms=kernel_ms(torch, launch[ver], kd["sets"],
+                                    kd["needle"])))
+        results["kernels"][name] = dict(max_abs_err=errs, turns=turns)
+        for t in turns:
+            print(f"{name} {t['version']:6s}: graph {t['graph_ms']:.4f} ms, "
+                  f"kernel {t['kernel_ms']:.4f} ms")
+        print(f"{name} max err vs plain: {errs}")
+    print(gpu)
+    print(json.dumps(results))
+    if args.json:
+        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json).write_text(json.dumps(results, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,7 +9,9 @@ Phases, each of which fails the run (exit code 1) if it fails:
 1. Build every CUDA kernel of the port from ``src/repro_torch/csrc``.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it (fp32 and bf16), and time the kernel, the
-   plain version and a PyTorch library call with CUDA events.
+   plain version and a PyTorch library call with CUDA events.  The paged
+   kernel's sweep includes lengths at its split boundaries, an empty slot
+   beside full windows, and two calls in a row that must agree bit for bit.
 3. Serve 12 requests through ``DisaggregatedCluster`` on full-width
    Phi-4-mini 3.8B (random weights from a seed), once with the dense decode
    kernel (``decode_impl="pallas"``) and once with the paged one
@@ -18,7 +20,8 @@ Phases, each of which fails the run (exit code 1) if it fails:
    plain path, within 0.02 x the logit spread.
 5. The flash-attention kernel of the teacher-forced loss against its plain
    version over fp32/bf16, G 1..8, hd 32/64/96/128, causal or not and
-   ragged S <= T, then at the loss's shape (B=2, S=T=2048, H=24, K=8,
+   ragged S <= T (with S*G off the kernel's 128-row blocks and S = 1 over
+   an offset cache), then at the loss's shape (B=2, S=T=2048, H=24, K=8,
    hd=128), timed beside ``scaled_dot_product_attention``.
 6. ``Model.train_loss`` on the full model at B=2, S=2048 with
    ``use_flash=True`` (32 flash launches, no decode kernel) and without
@@ -60,6 +63,24 @@ LOSS_BOUND = 2e-3
 TRAIN_LAYERS = 16                  # of 32: fp32 params + grads + moments
 
 
+# mangled-name parts of the bf16 instantiations on the main paths, whose
+# ptxas report phase 1 prints in full
+MAIN_KERNELS = {"flash_attention": "flash_bf16_kernel",
+                "paged_attention": "paged_split_kernelI13__nv_bfloat16Li3ELi128E",
+                "decode_attention": "dense_decode_kernelI13__nv_bfloat16Li3ELi128E"}
+
+
+def ptxas_lines(log: str, needle: str):
+    """ptxas's lines for the kernels whose name holds ``needle``, every
+    warning, and every note that it serialised ``wgmma``."""
+    keep = False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            keep = needle in line
+        if keep or "warning" in line.lower() or "Performance Loss" in line:
+            yield line.strip()
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -78,19 +99,28 @@ def gpu_line() -> str:
 
 
 def time_ms(torch, fn, arg_sets, reps=60):
-    """Mean time of one call, from CUDA events around ``reps`` calls that
-    rotate over ``arg_sets`` (together larger than the 50 MB L2, so each
-    call finds its inputs cold, as a decode step's layers do)."""
+    """Mean device time of one call: after two eager warm-up calls,
+    ``reps`` calls rotating over ``arg_sets`` (together larger than the 50
+    MB L2, so each call finds its inputs cold, as a decode step's layers
+    do) are captured into one CUDA graph, and its replay is timed with CUDA
+    events.  The graph leaves out the host's time to issue each call, which
+    at these sizes is as long as the kernels themselves."""
     for args in arg_sets[:2]:
         fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for i in range(reps):
-        fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -153,25 +183,46 @@ def phase_kernels(torch, F):
               f"{dtype}: max err {e:.3g}")
         if dtype == torch.bfloat16:
             errs["decode_attention"] = e
+    # K2, every (G, hd, dtype) it is built for, at a small size over a few
+    # splits
+    for dtype in (torch.float32, torch.bfloat16):
+        for g in range(1, 9):
+            for d in (32, 64, 128):
+                args = paged_inputs(torch, gen, 3, 41, 20, 2 * g, 2, d, dtype,
+                                    [0, 257, 320])
+                max_err(torch, pops.paged_attention(*args),
+                        pops.paged_attention_plain(*args), dtype)
     # K2 over the engine's page-table ladder; N = 4*68 + 1 pages with the
     # trash page 0, shared pages, out-of-range entries (clamped) and
-    # lengths past the window (clamped)
+    # lengths past the window (clamped); then, at W = 68, lengths at the
+    # split boundaries, an empty slot beside full windows, and two calls in
+    # a row on the same combine counters (a counter left unreset, or a
+    # combine that depends on which block finishes last, shows there)
     n = SLOTS * 68 + 1
+    split = pops.split_plan(SLOTS, 68, 16, kh, h // kh, hd).chunk
+    edges = ([split - 1, split, split + 1, 68 * 16],
+             [0, 68 * 16, 68 * 16 + 9, 2 * split + 1])
     for dtype in (torch.float32, torch.bfloat16):
         worst = 0.0
-        for w in (1, 2, 4, 8, 16, 32, 64, 68):
-            lens = [0, 1, max(1, 16 * w - 5), 16 * w + 7]
+        cases = [(w, [0, 1, max(1, 16 * w - 5), 16 * w + 7])
+                 for w in (1, 2, 4, 8, 16, 32, 64, 68)]
+        cases += [(68, lens) for lens in edges]
+        for w, lens in cases:
             q, kp, vp, table, lengths = paged_inputs(
                 torch, gen, SLOTS, n, w, h, kh, hd, dtype, lens)
             table[0, 0] = 0
             table[1, :] = table[2, :]
             table[3, -1] = n + 5
             table[2, 0] = -3
-            worst = max(worst, max_err(
-                torch, pops.paged_attention(q, kp, vp, table, lengths),
-                pops.paged_attention_plain(q, kp, vp, table, lengths), dtype))
+            want = pops.paged_attention_plain(q, kp, vp, table, lengths)
+            first = pops.paged_attention(q, kp, vp, table, lengths)
+            again = pops.paged_attention(q, kp, vp, table, lengths)
+            check(torch.equal(first, again), f"K2 W={w} lengths {lens}: two "
+                  f"calls in a row differ")
+            worst = max(worst, max_err(torch, first, want, dtype))
         print(f"K2 paged_attention N={n} W=1..68 G=3 hd=128 {dtype}: "
-              f"max err {worst:.3g}")
+              f"max err {worst:.3g} (splits of {split} keys; edge lengths "
+              f"{edges}; each case called twice, bit-identical)")
         if dtype == torch.bfloat16:
             errs["paged_attention"] = worst
     torch.cuda.synchronize()
@@ -278,9 +329,26 @@ def phase_flash(torch, F):
                                                            causal=causal),
                                 dtype)
                         n += 1
+    # the edges of the 128-row blocks: S*G past or short of a multiple of
+    # 128 for G that does not divide it, and a single query over an offset
+    # cache
+    for dtype in (torch.float32, torch.bfloat16):
+        for g in (3, 5, 6, 7):
+            for d in fops.HEAD_DIMS:
+                for s, extra in ((1, 37), (128 // g + 1, 0), (256 // g, 5)):
+                    for causal in (True, False):
+                        args = flash_inputs(torch, gen, 2, s, s + extra,
+                                            2 * g, 2, d, dtype)
+                        max_err(torch,
+                                fops.flash_attention(*args, causal=causal),
+                                fops.flash_attention_plain(*args,
+                                                           causal=causal),
+                                dtype)
+                        n += 1
     torch.cuda.synchronize()
     print(f"K3 flash_attention: {n} sweep cases agree (G 1..8, hd "
-          f"{fops.HEAD_DIMS}, causal and not, T - S in (0, 37))")
+          f"{fops.HEAD_DIMS}, causal and not, T - S in (0, 37); S*G off "
+          f"the 128-row blocks for G 3/5/6/7; S = 1 with T - S = 37)")
     b, s, h, kh, hd = LOSS_B, LOSS_S, 24, 8, 128     # the loss's shape
     err = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -571,6 +639,8 @@ def main() -> int:
         print(f"  {name}: {len(regs)} kernels, max {max(regs, default=0)} "
               f"registers/thread, {sum(n > 0 for n in spills)} with spills "
               f"(largest {max(spills, default=0)} bytes)")
+        for line in ptxas_lines(log, MAIN_KERNELS.get(name, "\0")):
+            print(f"    {line}")
 
     t0 = time.perf_counter()
     records = phase_kernels(torch, F)

@@ -5,12 +5,13 @@ The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``flash_attention_pallas`` (src/repro/kernels/flash_attention/
 flash_attention.py:80).  At the loss's shape (B=2, S=T=2048, H=24, K=8,
 hd=128, bf16) it is bound by the tensor cores: 5.2e10 causal operations,
-0.052 ms at 989 TFLOP/s, against 0.020 ms for its 67 MB at 3.35 TB/s.  One
-thread block per (batch, KV head, 64 rows of (query, head) pairs) keeps its
-rows' online-softmax state and fp32 accumulators in registers, loops over
-64-key K/V tiles staged in shared memory (each tile serves the G heads of
-the group) up to the block's causal limit, and runs both products on the
-tensor cores with ``mma.sync`` in bf16; fp32 runs a scalar loop.
+0.052 ms at 989 TFLOP/s, against 0.020 ms for its 67 MB at 3.35 TB/s.  In
+bf16 one persistent thread block per SM walks tasks of 128 rows of
+(query, head) pairs of one (batch, KV head), longest first: a producer warp
+streams 128-key K/V tiles with TMA into a two-stage ring (each tile serves
+the G heads of the group), and two consumer warpgroups run both products
+on ``wgmma`` with the online softmax in registers, up to each task's causal
+limit.  fp32 runs a scalar loop, one row a thread.
 
 The JAX package has no gradient for this kernel (``jax.grad`` through
 ``flash_attention`` fails), so its ``Trainer`` trains with

@@ -5,10 +5,14 @@ The kernel (``csrc/paged_attention.cu``) replaces the Pallas TPU kernel
 ``paged_attention_pallas`` (src/repro/kernels/paged_attention/
 paged_attention.py:66).  Like the dense kernel it is bound by the bytes of
 the valid KV rows at 3.35 TB/s on an H100.  The pool is never gathered into
-a dense per-slot view: each thread block reads its slot's page-table row
-and walks the slot's pages in order, clamping entries into the pool and the
-length to the table's window as the JAX wrapper does (ops.py:35-37 there).
-Page 0 is the trash page that unmapped entries point at.
+a dense per-slot view.  The kernel splits each slot's window into chunks of
+whole pages (flash-decoding, ``csrc/decode_split.cuh``): one thread block
+per (chunk, KV head, slot) reads its chunk's page ids once, clamping them
+into the pool and the length to the table's window as the JAX wrapper does
+(ops.py:35-37 there), and the last block of each (slot, KV head) combines
+the chunks' partial softmax states in chunk order, in the same launch.
+:func:`split_plan` sizes the chunks and the scratch.  Page 0 is the trash
+page that unmapped entries point at.
 
 :func:`paged_attention` takes the plain version for a tensor on the CPU
 and launches the kernel for a CUDA tensor; anything else raises.
@@ -16,6 +20,8 @@ and launches the kernel for a CUDA tensor; anything else raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -46,11 +52,59 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, lengths):
     return decode_attention_plain(q, k, v, lengths)
 
 
+# Keys per split on an H100: enough blocks with keys to keep every SM's
+# loads in flight at the decode batch (see csrc/paged_attention.cu).
+SPLIT_KEYS = 64
+MAX_SPLIT_PAGES = 64      # page ids one block keeps (csrc/decode_split.cuh)
+
+
+@dataclass(frozen=True)
+class SplitPlan:
+    """How the kernel cuts a (B, W)-page table: ``chunk_pages`` pages
+    (``chunk`` keys) per split, ``splits`` splits per slot, partial states
+    of shape ``partial_shape`` (fp32) and ``counters`` combine counters."""
+    chunk_pages: int
+    chunk: int
+    splits: int
+    partial_shape: tuple
+    counters: int
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(batch, width, block, num_kv, group, head_dim):
+    """The split plan of a launch over ``batch`` slots, ``width`` pages of
+    ``block`` keys, ``num_kv`` KV heads of ``group`` query heads and
+    ``head_dim``: whole pages of about SPLIT_KEYS keys per split, as many
+    splits as cover the window.  A slot's splits past its length do no
+    work."""
+    pages = min(MAX_SPLIT_PAGES, max(1, SPLIT_KEYS // block))
+    chunk = pages * block
+    splits = max(1, -(-width // pages))
+    return SplitPlan(pages, chunk, splits,
+                     (batch, num_kv, splits, group * (head_dim + 2)),
+                     batch * num_kv)
+
+
+# device -> int32 combine counters; every launch leaves them at zero.
+# Launches on one device share them, so they must be ordered (one stream).
+_COUNTERS = {}
+
+
+def _counters(device, n):
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
+@functools.lru_cache(maxsize=None)
 def _launcher():
     lib = build.load("paged_attention")
     fn = lib.paged_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2)
     return lib, fn
 
 
@@ -80,12 +134,18 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths):
     out = torch.empty_like(q)
     if b == 0 or n == 0 or w == 0:
         return out.zero_()
+    plan = split_plan(b, w, block, kh, h // kh, hd)
+    partial = torch.empty(plan.partial_shape, dtype=torch.float32,
+                          device=q.device)
+    counters = _counters(q.device, plan.counters)
     lib, fn = _launcher()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                b, n, block, w, kh, h // kh, hd, _DTYPES[q.dtype], stream)
+                b, n, block, w, kh, h // kh, hd, _DTYPES[q.dtype], stream,
+                partial.data_ptr(), counters.data_ptr(), plan.splits,
+                plan.chunk_pages)
     raise_on_launch_error(lib, "paged_attention", rc, "paged_attention")
     paged_attention.launches += 1
     return out

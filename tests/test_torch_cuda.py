@@ -75,6 +75,33 @@ def test_paged_kernel_matches_plain(dev, w, dtype):
         q, kp, vp, table, lengths), atol=TOL[dtype], rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge", ["split", "empty"])
+def test_paged_kernel_split_edges_and_repeated_calls(dev, edge, dtype):
+    """Lengths at the kernel's split boundaries and the full window, or an
+    empty slot beside full windows; two calls in a row on the same combine
+    counters give the same bits."""
+    rng = np.random.default_rng(7 if edge == "split" else 8)
+    b, n, w, kh, g, hd = 4, 4 * 68 + 1, 68, 8, 3, 128
+    split = pops.split_plan(b, w, 16, kh, g, hd).chunk
+    lens = ([split - 1, split, split + 1, 16 * w] if edge == "split"
+            else [0, 16 * w, 16 * w + 9, 2 * split + 1])
+    q = _t(rng, (b, kh * g, hd), dtype, dev)
+    kp, vp = (_t(rng, (n, 16, kh, hd), dtype, dev) for _ in range(2))
+    table = torch.from_numpy(rng.integers(1, n, (b, w)).astype(np.int32))
+    table = table.to(dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = pops.paged_attention.launches
+    first = pops.paged_attention(q, kp, vp, table, lengths)
+    again = pops.paged_attention(q, kp, vp, table, lengths)
+    assert pops.paged_attention.launches == before + 2
+    assert torch.equal(first, again)
+    torch.testing.assert_close(first, pops.paged_attention_plain(
+        q, kp, vp, table, lengths), atol=TOL[dtype], rtol=TOL[dtype])
+    if edge == "empty":
+        assert torch.all(first[0] == 0)
+
+
 def test_wrapper_raises_on_strided_input(dev):
     q = torch.zeros((2, 6, 64), device=dev)
     k = torch.zeros((2, 64, 2, 128), device=dev)[..., ::2]
@@ -97,6 +124,23 @@ def test_flash_kernel_matches_plain(dev, g, hd, s, extra, causal, dtype):
     assert fops.flash_attention.launches == before + 1
     torch.testing.assert_close(out, fops.flash_attention_plain(
         q, k, v, causal=causal), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 96])
+@pytest.mark.parametrize("g,s,extra", [(3, 43, 0), (5, 51, 37), (6, 22, 0),
+                                       (7, 19, 5), (3, 1, 37), (7, 1, 37)])
+def test_flash_kernel_row_block_edges(dev, g, s, extra, hd, dtype):
+    """S*G off a multiple of the kernel's 128-row blocks (G = 3, 5, 6, 7),
+    and a single query over an offset cache."""
+    rng = np.random.default_rng(g * 1000 + s * 10 + hd)
+    b, kh = 2, 2
+    q = _t(rng, (b, s, kh * g, hd), dtype, dev)
+    k, v = (_t(rng, (b, s + extra, kh, hd), dtype, dev) for _ in range(2))
+    for causal in (True, False):
+        out = fops.flash_attention(q, k, v, causal=causal)
+        torch.testing.assert_close(out, fops.flash_attention_plain(
+            q, k, v, causal=causal), atol=TOL[dtype], rtol=TOL[dtype])
 
 
 def test_flash_wrapper_raises(dev):
