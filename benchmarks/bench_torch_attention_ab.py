@@ -1,5 +1,6 @@
-"""A/B of the port's paged-decode (K2) and flash-attention (K3) kernels:
-a parent commit's CUDA sources against this tree's, on one GPU, in turns.
+"""A/B of the port's decode (K1), paged-decode (K2) and flash-attention (K3)
+kernels: a parent commit's CUDA sources against this tree's, on one GPU, in
+turns.
 
 Stage the parent's sources first (``build/`` is git-ignored), then run:
 
@@ -11,12 +12,14 @@ Stage the parent's sources first (``build/`` is git-ignored), then run:
 
 The parent's sources are built into ``build/ab_parent/`` with the same
 ``nvcc`` flags and ``ctypes`` binding as ``repro_torch.kernels.build``;
-this tree's go to ``build/kernels/`` as usual.  Both versions get the shapes
-and input rotation of ``chip_smoke.py`` phases 2 and 5 (K2: bf16, 4 slots,
-G = 3, hd = 128, W = 68 pages of 16, lengths 1041/913/760/577, 8 input
-sets; K3: bf16, B=2, S=T=2048, H=24, K=8, hd=128, causal, 4 input sets),
-are checked against the plain version on the first set, and are timed in
-the order parent, new, new, parent, each turn in two ways:
+this tree's go to ``build/kernels/`` as usual; both builds run at once.
+Both versions get the shapes and input rotation of ``chip_smoke.py``
+phases 2 and 5 (K1: bf16, 4 slots, G = 3, hd = 128, T = 1088, lengths
+1041/913/760/577, 8 input sets; K2: the same with W = 68 pages of 16; K3:
+bf16, B=2, S=T=2048, H=24, K=8, hd=128, causal, 4 input sets), are
+checked against the plain version on the first set (and against each
+other bit for bit, which is printed), and are timed in the order parent,
+new, new, parent, each turn in two ways:
 
 * ``graph_ms``: 60 launches rotating over the input sets, captured in one
   CUDA graph, its replay timed with CUDA events (device time, without the
@@ -24,10 +27,12 @@ the order parent, new, new, parent, each turn in two ways:
 * ``kernel_ms``: the mean duration of the kernel itself in a
   ``torch.profiler`` trace of 30 launches.
 
-Both versions are called through the same thin ``ctypes`` launcher with
-preallocated outputs and scratch, so the Python wrappers' cost is in
-neither.  Needs a CUDA device, and fails if the parent's directory is
-missing.
+Both versions are called through the same thin ``ctypes`` launchers with
+preallocated outputs, so the Python wrappers' cost is in neither.  The
+launchers follow each version's ABI: K1 and K2 with split scratch and
+combine counters when the sources hold the split body, else the older
+one-block-per-(slot, KV head) ABI.  Needs a CUDA device, and fails if the
+parent's directory is missing.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import ctypes
 import json
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -116,6 +122,35 @@ def paged_launcher(torch, lib_path, src_dir, pops):
     return launch
 
 
+def dense_launcher(torch, lib_path, src_dir, chunk):
+    """A launcher of the dense kernel in ``lib_path``: the split ABI
+    (scratch, counters, splits, keys per split after the stream) when the
+    sources hold it, else the stateless one-block-per-(slot, KV head)
+    ABI."""
+    split_abi = "dense_split_kernel" in (Path(src_dir)
+                                         / "decode_attention.cu").read_text()
+    tail = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 if split_abi else []
+    fn = bind(lib_path, "decode_attention", 5, 6, tail)
+    counters = torch.zeros(4096, dtype=torch.int32, device="cuda")
+
+    def launch(q, k, v, lengths, out):
+        b, h, hd = q.shape
+        t, kh = k.shape[1], k.shape[2]
+        extra = []
+        if split_abi:
+            splits = -(-t // chunk)
+            partial = torch.empty((b, kh, splits, h // kh * (hd + 2)),
+                                  dtype=torch.float32, device="cuda")
+            extra = [partial.data_ptr(), counters.data_ptr(), splits, chunk]
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                out.data_ptr(), b, t, kh, h // kh, hd, 1, stream, *extra)
+        if rc:
+            raise RuntimeError(f"decode_attention launch: {rc}")
+        return out
+    return launch
+
+
 def flash_launcher(torch, lib_path):
     fn = bind(lib_path, "flash_attention", 4, 8, [])
 
@@ -150,6 +185,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.paged_attention import ops as pops
 
@@ -157,15 +193,19 @@ def main() -> int:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    names = ("paged_attention", "flash_attention")
-    libs = {"parent": build.build_all(names, parent,
-                                      ROOT / "build" / "ab_parent"),
-            "new": build.build_all(names)}
-    srcs = {"parent": parent, "new": build.CSRC}
+    names = ("decode_attention", "paged_attention", "flash_attention")
+    jobs = {"parent": (names, parent, ROOT / "build" / "ab_parent"),
+            "new": (names, build.CSRC, build.BUILD_DIR)}
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futs = {v: pool.submit(build.build_all, *job)
+                for v, job in jobs.items()}
+        libs = {v: f.result() for v, f in futs.items()}
+    srcs = {v: job[1] for v, job in jobs.items()}
     for ver, paths in libs.items():
         for name, path in paths.items():
             log = path.with_suffix(".log").read_text()
             for line in cs.ptxas_lines(log, {
+                    "decode_attention": "13__nv_bfloat16Li3ELi128E",
                     "paged_attention": "13__nv_bfloat16Li3ELi128E",
                     "flash_attention": "flash_bf16_kernelILi128E"}[name]):
                 if "Used" in line or "spill" in line or "arn" in line:
@@ -174,6 +214,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     h, kh, hd, n = 24, 8, 128, cs.SLOTS * 68 + 1
     lens = [1041, 913, 760, 577]
+    dsets = []
+    for _ in range(8):
+        q, k, v, lengths = cs.decode_inputs(torch, gen, cs.SLOTS, cs.MAX_LEN,
+                                            h, kh, hd, torch.bfloat16, lens)
+        dsets.append((q, k, v, lengths, torch.empty_like(q)))
     psets = []
     for _ in range(8):
         q, kp, vp, _, lengths = cs.paged_inputs(torch, gen, cs.SLOTS, n, 68, h,
@@ -189,6 +234,12 @@ def main() -> int:
         fsets.append((q, k, v, torch.empty_like(q)))
 
     kernels = {
+        "decode_attention": dict(
+            sets=dsets, plain=lambda s: dops.decode_attention_plain(*s[:4]),
+            make=lambda ver: dense_launcher(torch,
+                                            libs[ver]["decode_attention"],
+                                            srcs[ver], dops.SPLIT_KEYS),
+            needle="dense_"),
         "paged_attention": dict(
             sets=psets, plain=lambda s: pops.paged_attention_plain(*s[:5]),
             make=lambda ver: paged_launcher(torch, libs[ver]["paged_attention"],
@@ -204,14 +255,16 @@ def main() -> int:
     for name, kd in kernels.items():
         launch = {ver: kd["make"](ver) for ver in ("parent", "new")}
         want = kd["plain"](kd["sets"][0]).float()
-        errs = {}
+        errs, outs = {}, {}
         for ver, fn in launch.items():
-            got = fn(*kd["sets"][0]).float()
+            outs[ver] = fn(*kd["sets"][0]).clone()
             torch.cuda.synchronize()
+            got = outs[ver].float()
             errs[ver] = float((got - want).abs().max())
             if not (errs[ver] <= 2e-2 and bool(torch.isfinite(got).all())):
                 raise SystemExit(f"bench: {ver} {name} disagrees with the "
                                  f"plain version: max err {errs[ver]}")
+        same = bool(torch.equal(outs["new"], outs["parent"]))
         turns = []
         for ver in ("parent", "new", "new", "parent"):
             turns.append(dict(
@@ -219,11 +272,13 @@ def main() -> int:
                 graph_ms=graph_ms(torch, launch[ver], kd["sets"]),
                 kernel_ms=kernel_ms(torch, launch[ver], kd["sets"],
                                     kd["needle"])))
-        results["kernels"][name] = dict(max_abs_err=errs, turns=turns)
+        results["kernels"][name] = dict(max_abs_err=errs, turns=turns,
+                                        bit_identical_to_parent=same)
         for t in turns:
             print(f"{name} {t['version']:6s}: graph {t['graph_ms']:.4f} ms, "
                   f"kernel {t['kernel_ms']:.4f} ms")
-        print(f"{name} max err vs plain: {errs}")
+        print(f"{name} max err vs plain: {errs}; output bit-identical to "
+              f"the parent's: {same}")
     print(gpu)
     print(json.dumps(results))
     if args.json:

@@ -9,9 +9,10 @@ Phases, each of which fails the run (exit code 1) if it fails:
 1. Build every CUDA kernel of the port from ``src/repro_torch/csrc``.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it (fp32 and bf16), and time the kernel, the
-   plain version and a PyTorch library call with CUDA events.  The paged
-   kernel's sweep includes lengths at its split boundaries, an empty slot
-   beside full windows, and two calls in a row that must agree bit for bit.
+   plain version and a PyTorch library call with CUDA events.  Both
+   decode kernels' sweeps include lengths at their split boundaries, an
+   empty slot beside full windows, and two calls in a row that must agree
+   bit for bit.
 3. Serve 12 requests through ``DisaggregatedCluster`` on full-width
    Phi-4-mini 3.8B (random weights from a seed), once with the dense decode
    kernel (``decode_impl="pallas"``) and once with the paged one
@@ -67,7 +68,14 @@ TRAIN_LAYERS = 16                  # of 32: fp32 params + grads + moments
 # ptxas report phase 1 prints in full
 MAIN_KERNELS = {"flash_attention": "flash_bf16_kernel",
                 "paged_attention": "paged_split_kernelI13__nv_bfloat16Li3ELi128E",
-                "decode_attention": "dense_decode_kernelI13__nv_bfloat16Li3ELi128E"}
+                "decode_attention": "dense_split_kernelI13__nv_bfloat16Li3ELi128E"}
+# each kernel's source files, its own first, as the `kernels` line names them
+_CSRC = "src/repro_torch/csrc/"
+_SPLIT = ("decode_split.cuh", "decode_attention_common.cuh", "hopper.cuh")
+SOURCES = {name: ", ".join(_CSRC + f for f in files) for name, files in {
+    "decode_attention": ("decode_attention.cu", *_SPLIT),
+    "paged_attention": ("paged_attention.cu", *_SPLIT),
+    "flash_attention": ("flash_attention.cu", "hopper.cuh")}.items()}
 
 
 def ptxas_lines(log: str, needle: str):
@@ -173,16 +181,30 @@ def phase_kernels(torch, F):
                                      [0, 257, 300])
                 max_err(torch, dops.decode_attention(*args),
                         dops.decode_attention_plain(*args), dtype)
-    # K1 at the main path's shapes: B = slots, T = max_len, ragged with 0
+    # K1 at the main path's shapes: B = slots, T = max_len, ragged with 0,
+    # then lengths at the split boundaries, an empty slot beside full
+    # windows and a length past T (clamped); each case called twice on the
+    # same combine counters, the two outputs bit-identical
+    chunk = dops.split_plan(SLOTS, MAX_LEN, kh, h // kh, hd).chunk
+    k1_edges = ([chunk - 1, chunk, chunk + 1, MAX_LEN],
+                [0, MAX_LEN, MAX_LEN + 9, 2 * chunk + 1])
     for dtype in (torch.float32, torch.bfloat16):
-        args = decode_inputs(torch, gen, SLOTS, MAX_LEN, h, kh, hd, dtype,
-                             [0, 1, 257, MAX_LEN])
-        e = max_err(torch, dops.decode_attention(*args),
-                    dops.decode_attention_plain(*args), dtype)
+        worst = 0.0
+        for lens in ([0, 1, 257, MAX_LEN], *k1_edges):
+            args = decode_inputs(torch, gen, SLOTS, MAX_LEN, h, kh, hd, dtype,
+                                 lens)
+            first = dops.decode_attention(*args)
+            again = dops.decode_attention(*args)
+            check(torch.equal(first, again), f"K1 lengths {lens}: two calls "
+                  f"in a row differ")
+            worst = max(worst, max_err(torch, first,
+                                       dops.decode_attention_plain(*args),
+                                       dtype))
         print(f"K1 decode_attention B={SLOTS} T={MAX_LEN} G=3 hd=128 "
-              f"{dtype}: max err {e:.3g}")
+              f"{dtype}: max err {worst:.3g} (splits of {chunk} keys; edge "
+              f"lengths {k1_edges}; each case called twice, bit-identical)")
         if dtype == torch.bfloat16:
-            errs["decode_attention"] = e
+            errs["decode_attention"] = worst
     # K2, every (G, hd, dtype) it is built for, at a small size over a few
     # splits
     for dtype in (torch.float32, torch.bfloat16):
@@ -240,7 +262,7 @@ def phase_kernels(torch, F):
     def record(name, kernel, plain, sets, lib_sets, moved):
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
         return dict(
-            name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
+            name=name, route="cuda", source=SOURCES[name],
             max_abs_err=errs[name],
             ms=time_ms(torch, kernel, sets),
             plain_ms=time_ms(torch, plain, sets),
@@ -372,7 +394,7 @@ def phase_flash(torch, F):
     ops_ms = 4 * b * h * hd * pairs / BF16_FLOPS_PER_S * 1e3
     rec = dict(
         name="flash_attention", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
+        source=SOURCES["flash_attention"],
         replaces="src/repro/kernels/flash_attention/flash_attention.py:80",
         max_abs_err=err[dt],
         ms=time_ms(torch, fops.flash_attention, sets),

@@ -1,15 +1,9 @@
-// Shared body of the single-token GQA decode-attention kernels (dense and
-// paged KV).  One thread block serves one (slot b, KV head): the G query
-// heads of that KV group sit in registers, and the block's warps stride
-// over the slot's valid KV rows with 16-byte loads, each row read once.
-//
-// Bound: decode attention moves every valid KV byte once and does ~4*G
-// flops per byte pair, far below the ~295 flop/byte ridge of an H100, so
-// the floor is (bytes of K and V below `length`) / 3.35 TB/s.  This design
-// reads exactly those bytes (rows past `length` are never loaded, as the
-// TPU kernel skips whole blocks past it).  Its grid is (K, B), 32 blocks at
-// B=4 and K=8 on 132 SMs, so most of the card idles; splitting the KV axis
-// across blocks (flash-decoding) is the next step and is not done here.
+// Common pieces of the single-token GQA decode-attention kernels (dense
+// and paged KV): the block size, 16-byte vector loads, the dense cache's
+// row map and the compile-time (dtype, head_dim, G) dispatch.  The kernels'
+// body, its bound and its design are in decode_split.cuh: both kernels
+// split each slot's keys over the grid (splits, K, B) and combine the
+// splits' partial softmax states in the same launch.
 //
 // Numerics follow the Pallas kernels: scores in fp32 as dot(q, k) / sqrt(hd),
 // an fp32 online softmax (m, l, acc) started at m = -1e30, and
@@ -75,129 +69,6 @@ struct DenseRows {
     return ((slot_base + t) * num_kv + kvh) * hd;
   }
 };
-
-// Page pool (N, block, K, hd) through the slot's page-table row; entries
-// are clamped into [0, N-1] (page 0 is the trash page).
-struct PagedRows {
-  const int* table_row;   // table + b * W
-  int num_pages;          // N
-  int block;
-  int num_kv;
-  int kvh;
-  int hd;
-  __device__ __forceinline__ int64_t operator()(int t) const {
-    int page = table_row[t / block];
-    page = min(max(page, 0), num_pages - 1);
-    return ((static_cast<int64_t>(page) * block + t % block) * num_kv + kvh) * hd;
-  }
-};
-
-// q, out: the (G, HD) query/output tile of this (b, kvh); k, v: the KV
-// tensors, addressed through `rows`; rows [0, length) are attended.
-template <typename T, int G, int HD, class Rows>
-__device__ __forceinline__ void attend(const T* __restrict__ q,
-                                       const T* __restrict__ k,
-                                       const T* __restrict__ v,
-                                       T* __restrict__ out, int length,
-                                       const Rows& rows) {
-  constexpr int VEC = Vec<T>::N;
-  constexpr int LPR = HD / VEC;            // lanes per KV row
-  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "head_dim");
-  constexpr int RPW = 32 / LPR;            // rows per warp per step
-  constexpr int NGROUPS = kNumWarps * RPW; // rows in flight per block
-  __shared__ float s_m[NGROUPS][G];
-  __shared__ float s_l[NGROUPS][G];
-  __shared__ float s_acc[NGROUPS][G][HD];
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int sub = lane % LPR;               // this lane's slice of the row
-  const int grp = warp * RPW + lane / LPR;  // this lane's row group
-  const float scale = rsqrtf(static_cast<float>(HD));
-
-  float qr[G][VEC];
-#pragma unroll
-  for (int g = 0; g < G; ++g) load_vec(q + g * HD + sub * VEC, qr[g]);
-
-  float m[G], l[G], acc[G][VEC];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[g][i] = 0.f;
-  }
-
-  // Every lane of a warp runs the same number of steps (the loop bound
-  // depends on the warp only), so the full-mask shuffles below are safe;
-  // lanes whose row is past `length` load nothing and skip the update.
-  for (int t0 = warp * RPW; t0 < length; t0 += NGROUPS) {
-    const int t = t0 + lane / LPR;
-    const bool valid = t < length;
-    float kr[VEC], vr[VEC];
-    if (valid) {
-      const int64_t off = rows(t) + sub * VEC;
-      load_vec(k + off, kr);
-      load_vec(v + off, vr);
-    } else {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) kr[i] = vr[i] = 0.f;
-    }
-    float s[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float d = 0.f;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) d += qr[g][i] * kr[i];
-      s[g] = d;
-    }
-#pragma unroll
-    for (int off = LPR / 2; off > 0; off >>= 1) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) s[g] += __shfl_xor_sync(0xffffffffu, s[g], off);
-    }
-    if (valid) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float sg = s[g] * scale;
-        const float mn = fmaxf(m[g], sg);
-        const float alpha = expf(m[g] - mn);
-        const float p = expf(sg - mn);
-        l[g] = l[g] * alpha + p;
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[g][i] = acc[g][i] * alpha + p * vr[i];
-        m[g] = mn;
-      }
-    }
-  }
-
-  // Block-level combine of the NGROUPS partial softmax states.
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) s_acc[grp][g][sub * VEC + i] = acc[g][i];
-    if (sub == 0) {
-      s_m[grp][g] = m[g];
-      s_l[grp][g] = l[g];
-    }
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < G * HD; idx += kThreads) {
-    const int g = idx / HD;
-    const int d = idx % HD;
-    float mx = kNegInf;
-#pragma unroll 4
-    for (int j = 0; j < NGROUPS; ++j) mx = fmaxf(mx, s_m[j][g]);
-    float lsum = 0.f, a = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < NGROUPS; ++j) {
-      const float w = expf(s_m[j][g] - mx);
-      lsum += s_l[j][g] * w;
-      a += s_acc[j][g][d] * w;
-    }
-    store(out + g * HD + d, a / fmaxf(lsum, 1e-30f));
-  }
-}
 
 // Compile-time (dtype, head_dim, G) dispatch.  dtype: 0 = fp32, 1 = bf16.
 template <typename T_, int G_, int HD_>

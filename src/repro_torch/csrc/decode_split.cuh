@@ -1,22 +1,28 @@
-// Split-KV body of the single-token GQA decode kernels (flash-decoding).
-// A thread block serves one chunk of whole pages of one (slot b, KV head):
-// it attends the G query heads of the group to the chunk's rows and leaves
-// a partial softmax state (m, l, acc); the last block of the (b, KV head)
-// to finish combines the partial states in split order.
+// Split-KV body of the single-token GQA decode kernels (flash-decoding),
+// shared by the dense-cache kernel (decode_attention.cu) and the paged one
+// (paged_attention.cu).  A thread block serves one chunk of the keys of one
+// (slot b, KV head): it attends the G query heads of the group to the
+// chunk's rows and leaves a partial softmax state (m, l, acc); the last
+// block of the (b, KV head) to finish combines the partial states in split
+// order.
 //
 // Bound: decode attention moves every valid KV byte once and does ~4*G
 // flops per byte pair, far below the ~295 flop/byte ridge of an H100, so
-// the floor is (bytes of K and V below `length`) / 3.35 TB/s.  What held
-// the one-block-per-(b, KV head) body (`attend`) back was latency, not
-// bytes: 32 blocks on 132 SMs, each with 8 rows in flight, and a
-// dependent chain of table read, load, shuffle reduction and `expf` per
-// row.  Here:
-//  - the grid is (splits, K, B); at the paged path's main shape (B = 4,
-//    K = 8, W = 68 pages of 16, lengths 577-1041) 64-key splits make 544
-//    blocks, 432 of them with keys, so every SM holds several;
+// the floor is (bytes of K and V below `length`) / 3.35 TB/s.  What held a
+// one-block-per-(b, KV head) body back was latency, not bytes: 32 blocks on
+// 132 SMs, each with 8 rows in flight, and a dependent chain of load,
+// shuffle reduction and `expf` per row.  Here:
+//  - the grid is (splits, K, B); at the decode path's main shape (B = 4,
+//    K = 8, 1088 keys a slot, lengths 577-1041) 64-key splits make 544
+//    blocks, 432 of them with keys, and 128-key splits 288 and 224, so
+//    every SM holds one or more;
 //  - a block copies each 64-row tile of K and V into shared memory with
-//    `cp.async` (16 bytes a copy, 32 KB in flight per block in bf16 at
-//    hd = 128) after reading its chunk's page ids once;
+//    16-byte `cp.async` copies from every thread, each row found through
+//    a row map (the chunk's page ids for the paged kernel, a fixed stride
+//    for the dense one);
+//  - a chunk of two tiles runs through a ring of S = 2 stages (the dense
+//    kernel), so the second tile's load overlaps the first's arithmetic;
+//    a one-tile chunk takes S = 1 (the paged kernel);
 //  - the online softmax rescales once per tile, not once per row.
 // The combine needs no second launch: each block with keys writes its
 // partial state to scratch, and the one that takes the last ticket of a
@@ -25,8 +31,9 @@
 // and resets the counter for the next launch.  A slot whose keys fit one
 // split writes its output directly; a length-0 slot returns zeros.
 //
-// Numerics follow `attend`: scores in fp32 as dot(q, k) / sqrt(hd), an
-// fp32 online softmax started at m = -1e30, out = acc / max(l, 1e-30).
+// Numerics follow the Pallas kernels: scores in fp32 as dot(q, k) /
+// sqrt(hd), an fp32 online softmax started at m = -1e30, and
+// out = acc / max(l, 1e-30).
 #pragma once
 
 #include "decode_attention_common.cuh"
@@ -36,6 +43,7 @@ namespace decode_attn {
 
 constexpr int kTileKeys = 64;      // K/V rows per shared-memory tile
 constexpr int kMaxSplitPages = 64; // page ids a block keeps
+constexpr int kMaxSmem = 232448;   // an H100 block's shared-memory limit
 
 // Scratch of one launch: partial states (B, K, splits, G * (HD + 2)) in
 // fp32, acc first, then m[G] and l[G]; one counter per (b, KV head), zero
@@ -59,19 +67,23 @@ __device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float2& x) {
   x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// Shared memory of the split body, in bytes; rows are padded by 32 bytes so
-// the score loop's 16-byte reads are free of bank conflicts.
-template <typename T, int G, int HD>
+// Shared memory of the split body, in bytes: S stages of a K tile and a V
+// tile of kTileKeys rows, each row padded by 32 bytes so the score loop's
+// 16-byte reads of neighbouring rows are free of bank conflicts; then q,
+// the tile's probabilities and the softmax statistics.
+template <typename T, int G, int HD, int S>
 struct SplitLayout {
   static constexpr int LD = HD + 32 / static_cast<int>(sizeof(T));
   static constexpr int KV = kTileKeys * LD * static_cast<int>(sizeof(T));
-  static constexpr int Q_OFF = 2 * KV;                    // float q[G][HD]
+  static constexpr int STAGE = 2 * KV;                    // K, then V
+  static constexpr int Q_OFF = S * STAGE;                 // float q[G][HD]
   static constexpr int P_OFF = Q_OFF + G * HD * 4;        // float p[G][tile]
   static constexpr int STAT_OFF = P_OFF + G * kTileKeys * 4;   // m, l, alpha
   static constexpr int BYTES = STAT_OFF + 3 * G * 4 + 16;
   static constexpr int KG = 2 * kThreads / HD;            // key groups of P V
+  static_assert(S == 1 || S == 2, "ring depth");
   static_assert(KG >= 1 && KG * HD == 2 * kThreads, "head_dim");
-  static_assert(KG * G * HD * 4 <= 2 * KV, "reduction buffer");
+  static_assert(KG * G * HD * 4 <= S * STAGE, "reduction buffer");
   static_assert(2 * kTileKeys == kThreads, "two threads per key");
 };
 
@@ -102,21 +114,47 @@ constexpr int combine_bytes(int splits) {
   return (2 * splits + 1) * G * 4;
 }
 
+// Copy tile i of rows [t_begin, t_end) of k and v (rows t_begin +
+// i * kTileKeys on, each found through `rows`: row t -> element offset of
+// (t, kvh, 0)) into stage i % S, 16 bytes a `cp.async` from every thread,
+// as one cp.async group.
+template <typename T, int G, int HD, int S, class Rows>
+__device__ __forceinline__ void load_tile(const T* __restrict__ k,
+                                          const T* __restrict__ v,
+                                          int t_begin, int t_end,
+                                          const Rows& rows, uint8_t* smem,
+                                          int i) {
+  using L = SplitLayout<T, G, HD, S>;
+  constexpr int VEC = Vec<T>::N;           // values per 16 bytes
+  constexpr int CPR = HD / VEC;            // 16-byte pieces per row
+  T* sk = reinterpret_cast<T*>(smem + (i % S) * L::STAGE);
+  T* sv = reinterpret_cast<T*>(smem + (i % S) * L::STAGE + L::KV);
+  const int t0 = t_begin + i * kTileKeys;
+  const int n = min(kTileKeys, t_end - t0);
+  for (int j = threadIdx.x; j < n * CPR; j += kThreads) {
+    const int r = j / CPR;
+    const int c = (j - r * CPR) * VEC;
+    const int64_t off = rows(t0 + r) + c;
+    hopper::cp_async_16(hopper::smem_addr(sk + r * L::LD + c), k + off, 16);
+    hopper::cp_async_16(hopper::smem_addr(sv + r * L::LD + c), v + off, 16);
+  }
+  hopper::cp_async_commit();
+}
+
 // Attend the query tile (staged by QShare into shared memory at Q_OFF) to
-// rows [t_begin, t_end) of k and v, addressed through `rows` (row t ->
-// element offset of (t, kvh, 0)); whatever `rows` reads from shared memory
-// is written before the call.  On return, shared memory holds m[G] and
-// l[G] at STAT_OFF and acc[G][HD] (fp32) at offset 0.
-template <typename T, int G, int HD, class Rows>
+// rows [t_begin, t_end) of k and v, addressed through `rows`, on a ring of
+// S stages: tile i + S is requested as soon as tile i's buffers are free.
+// Whatever `rows` reads from shared memory is written before the call.  On
+// return, shared memory holds m[G] and l[G] at STAT_OFF and acc[G][HD]
+// (fp32) at offset 0.
+template <typename T, int G, int HD, int S, class Rows>
 __device__ __forceinline__ void split_attend(const T* __restrict__ k,
                                              const T* __restrict__ v,
                                              int t_begin, int t_end,
                                              const Rows& rows, uint8_t* smem) {
-  using L = SplitLayout<T, G, HD>;
+  using L = SplitLayout<T, G, HD, S>;
   constexpr int VEC = Vec<T>::N;           // values per 16 bytes
   constexpr int CPR = HD / VEC;            // 16-byte pieces per row
-  T* sk = reinterpret_cast<T*>(smem);
-  T* sv = reinterpret_cast<T*>(smem + L::KV);
   const float* sq = reinterpret_cast<const float*>(smem + L::Q_OFF);
   float* sp = reinterpret_cast<float*>(smem + L::P_OFF);
   float* s_m = reinterpret_cast<float*>(smem + L::STAT_OFF);
@@ -132,6 +170,9 @@ __device__ __forceinline__ void split_attend(const T* __restrict__ k,
     s_l[tid] = 0.f;
   }
   __syncthreads();   // q, the caller's row table and the stats are in place
+  const int n_tiles = (t_end - t_begin + kTileKeys - 1) / kTileKeys;
+  for (int i = 0; i < min(S, n_tiles); ++i)
+    load_tile<T, G, HD, S>(k, v, t_begin, t_end, rows, smem, i);
   // P V: this thread's column pair and key group.
   const int dp = tid % (HD / 2);
   const int kg = tid / (HD / 2);
@@ -139,17 +180,15 @@ __device__ __forceinline__ void split_attend(const T* __restrict__ k,
 #pragma unroll
   for (int g = 0; g < G; ++g) acc[g][0] = acc[g][1] = 0.f;
 
-  for (int t0 = t_begin; t0 < t_end; t0 += kTileKeys) {
+  int i = 0;
+  for (int t0 = t_begin; t0 < t_end; t0 += kTileKeys, ++i) {
     const int n = min(kTileKeys, t_end - t0);
-    for (int i = tid; i < n * CPR; i += kThreads) {
-      const int r = i / CPR;
-      const int c = (i - r * CPR) * VEC;
-      const int64_t off = rows(t0 + r) + c;
-      hopper::cp_async_16(hopper::smem_addr(sk + r * L::LD + c), k + off, 16);
-      hopper::cp_async_16(hopper::smem_addr(sv + r * L::LD + c), v + off, 16);
-    }
-    hopper::cp_async_commit();
-    hopper::cp_async_wait<0>();
+    const T* sk = reinterpret_cast<const T*>(smem + (i % S) * L::STAGE);
+    const T* sv = reinterpret_cast<const T*>(smem + (i % S) * L::STAGE + L::KV);
+    if (S == 2 && i + 1 < n_tiles)
+      hopper::cp_async_wait<1>();   // tile i + 1 stays in flight
+    else
+      hopper::cp_async_wait<0>();
     __syncthreads();
 
     // Scores: two threads per key, each over every other 16-byte piece.
@@ -231,6 +270,8 @@ __device__ __forceinline__ void split_attend(const T* __restrict__ k,
       }
     }
     __syncthreads();   // the tile's buffers are free again
+    if (i + S < n_tiles)
+      load_tile<T, G, HD, S>(k, v, t_begin, t_end, rows, smem, i + S);
   }
 
   // Sum the key groups' partial accumulators into acc[G][HD] at offset 0.
@@ -241,11 +282,11 @@ __device__ __forceinline__ void split_attend(const T* __restrict__ k,
     red[(kg * G + g) * HD + 2 * dp + 1] = acc[g][1];
   }
   __syncthreads();
-  for (int i = tid; i < G * HD; i += kThreads) {
-    float a = red[i];
+  for (int j = tid; j < G * HD; j += kThreads) {
+    float a = red[j];
 #pragma unroll
-    for (int j = 1; j < L::KG; ++j) a += red[j * G * HD + i];
-    red[i] = a;   // row j = 0 of the buffer; only this thread reads index i
+    for (int r = 1; r < L::KG; ++r) a += red[r * G * HD + j];
+    red[j] = a;   // row r = 0 of the buffer; only this thread reads index j
   }
   __syncthreads();
 }
@@ -253,13 +294,14 @@ __device__ __forceinline__ void split_attend(const T* __restrict__ k,
 // Write the result of split `split` of (b, KV head) `bk`: directly when the
 // slot has one split with keys, else through the partial states and the
 // last-block combine.  `n_active` splits hold keys; out is the (G, HD)
-// output tile.  The combine needs combine_bytes(splits) of shared memory.
-template <typename T, int G, int HD>
+// output tile; S is the ring depth split_attend ran with.  The combine
+// needs combine_bytes(splits) of shared memory.
+template <typename T, int G, int HD, int S>
 __device__ __forceinline__ void split_finish(T* __restrict__ out, int split,
                                              int n_active, int64_t bk,
                                              const SplitScratch& scratch,
                                              uint8_t* smem) {
-  using L = SplitLayout<T, G, HD>;
+  using L = SplitLayout<T, G, HD, S>;
   constexpr int PART = G * (HD + 2);
   const float* acc = reinterpret_cast<const float*>(smem);
   const float* s_m = reinterpret_cast<const float*>(smem + L::STAT_OFF);

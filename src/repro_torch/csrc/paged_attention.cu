@@ -4,6 +4,8 @@
 // its bound and its design are in decode_split.cuh: the KV axis is split
 // into chunks of whole pages, one thread block per (chunk, KV head, slot),
 // with a deterministic combine by the last block of each (slot, KV head).
+// The pages of a chunk lie anywhere in the pool, so every thread of the
+// block gathers rows with 16-byte `cp.async` copies, one tile at a time.
 // Where the TPU kernel had the page table prefetched as scalars ahead of
 // its grid, each block reads its own chunk's page ids once, before its
 // first K/V load.
@@ -12,10 +14,11 @@
 // (B = 4, K = 8, W = 68, lengths 1041/913/760/577) that gives a grid of
 // 17 x 8 x 4 = 544 blocks, 432 with keys, ~3.3 per SM of an H100's 132:
 // enough to keep ~100 KB of loads in flight per SM, against the ~25 KB
-// that 3.35 TB/s at ~1 us of latency needs.  128-key splits would leave
-// 224 blocks with keys, under 2 per SM.  The host computes the plan
-// (`split_plan` in kernels/paged_attention/ops.py) and allocates the
-// scratch.
+// that 3.35 TB/s at ~1 us of latency needs.  128-key splits (224 blocks
+// with keys) on a 2-stage ring measured ~10% faster for the dense kernel
+// on the same shape (H100 80GB HBM3 at 700 W, PERF.md §6) and are untried
+// here.  The host computes the plan (`split_plan` in
+// kernels/paged_attention/ops.py) and allocates the scratch.
 //
 // q, out: (B, H, hd) with H = K * G; k_pool, v_pool: (N, block, K, hd);
 // table: (B, W) int32, entries clamped to [0, N-1]; lengths: (B,) int32,
@@ -23,8 +26,6 @@
 #include "decode_split.cuh"
 
 namespace decode_attn {
-
-constexpr int kMaxSmem = 232448;   // an H100 block's shared-memory limit
 
 // Rows of one split: row t of the slot, t in the split's chunk, through
 // the chunk's page ids (already clamped into the pool).
@@ -75,12 +76,13 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     return;
   }
   if (reads_page) s_pages[threadIdx.x] = min(max(page, 0), num_pages - 1);
-  qs.stage(reinterpret_cast<float*>(smem + SplitLayout<T, G, HD>::Q_OFF));
+  qs.stage(reinterpret_cast<float*>(smem + SplitLayout<T, G, HD, 1>::Q_OFF));
   const int t_begin = split * chunk;
   const SplitPages rows{s_pages, t_begin, block, num_kv, kvh, HD};
-  split_attend<T, G, HD>(k_pool, v_pool, t_begin,
-                         min(length, t_begin + chunk), rows, smem);
-  split_finish<T, G, HD>(o, split, n_active, bk, scratch, smem);
+  // one tile a split: a ring of one stage
+  split_attend<T, G, HD, 1>(k_pool, v_pool, t_begin,
+                            min(length, t_begin + chunk), rows, smem);
+  split_finish<T, G, HD, 1>(o, split, n_active, bk, scratch, smem);
 }
 
 }  // namespace decode_attn
@@ -105,7 +107,7 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pool,
   return dispatch(dtype, head_dim, group, [&](auto cfg) -> int {
     using C = decltype(cfg);
     using T = typename C::T;
-    const int bytes = max(SplitLayout<T, C::G, C::HD>::BYTES,
+    const int bytes = max(SplitLayout<T, C::G, C::HD, 1>::BYTES,
                           combine_bytes<C::G>(splits));
     if (bytes > kMaxSmem) return kUnsupported;
     if (bytes > 48 * 1024) {

@@ -4,10 +4,16 @@ its plain PyTorch version.
 The kernel (``csrc/decode_attention.cu``) replaces the Pallas TPU kernel
 ``decode_attention_pallas`` (src/repro/kernels/decode_attention/
 decode_attention.py:61).  It is bound by the bytes of K and V below each
-row's length, read once at 3.35 TB/s on an H100; one thread block per
-(slot, KV head) holds the G query heads of the group in registers and
-streams the slot's valid rows with 16-byte loads, skipping every row past
-the length (see ``csrc/decode_attention_common.cuh``).
+row's length, read once at 3.35 TB/s on an H100.  It splits each slot's
+keys into chunks of SPLIT_KEYS (flash-decoding, ``csrc/decode_split.cuh``):
+one thread block per (chunk, KV head, slot) streams its chunk's K and V
+rows into shared memory by ``cp.async`` on a 2-stage ring of 64-row tiles,
+attends the G query heads of the group to them, and the last block of
+each (slot, KV head) combines the chunks' partial softmax states in chunk
+order, in the same launch.  Chunks past a slot's length do no work.
+:func:`split_plan` sizes the chunks and the scratch; the combine counters
+(:func:`_counters`) are one buffer per device, shared with the paged
+kernel.
 
 :func:`decode_attention` takes the plain version for a tensor on the CPU
 and launches the kernel for a CUDA tensor; anything else raises.
@@ -15,7 +21,9 @@ and launches the kernel for a CUDA tensor; anything else raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -87,11 +95,55 @@ def raise_on_launch_error(lib, prefix, rc, name):
                            f"{err(rc).decode()} (cudaError {rc})")
 
 
+# Keys per split, two tiles of the kernel's ring: on an H100 faster at the
+# decode batch than 64 (see csrc/decode_attention.cu).
+SPLIT_KEYS = 128
+
+
+@dataclass(frozen=True)
+class SplitPlan:
+    """How a split-KV decode kernel cuts each slot's keys: ``chunk`` keys
+    per split, ``splits`` splits per slot, partial softmax states of shape
+    ``partial_shape`` (fp32) and ``counters`` combine counters."""
+    chunk: int
+    splits: int
+    partial_shape: tuple
+    counters: int
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(batch, seq_len, num_kv, group, head_dim):
+    """The split plan of a launch over ``batch`` slots of ``seq_len`` keys,
+    ``num_kv`` KV heads of ``group`` query heads and ``head_dim``: chunks of
+    SPLIT_KEYS keys, as many as cover the cache.  A slot's splits past its
+    length do no work."""
+    splits = max(1, -(-seq_len // SPLIT_KEYS))
+    return SplitPlan(SPLIT_KEYS, splits,
+                     (batch, num_kv, splits, group * (head_dim + 2)),
+                     batch * num_kv)
+
+
+# device -> int32 combine counters of the split-KV kernels (dense and
+# paged); every launch leaves them at zero.  Launches on one device share
+# them, so they must be ordered (one stream).
+_COUNTERS = {}
+
+
+def _counters(device, n):
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
+@functools.lru_cache(maxsize=None)
 def _launcher():
     lib = build.load("decode_attention")
     fn = lib.decode_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2)
     return lib, fn
 
 
@@ -100,8 +152,11 @@ def decode_attention(q, k, v, lengths):
 
     A CPU tensor takes :func:`decode_attention_plain`; a CUDA tensor
     launches the kernel (bf16 or fp32, H/K from 1 to 8, hd in 32/64/128,
-    contiguous) or raises.  Lengths are clamped to [0, T]; rows with
-    ``length == 0`` return zeros (inactive serving slots)."""
+    contiguous) or raises.  The kernel's grid is :func:`split_plan`'s
+    (splits, K, B); its partial states go to scratch from ``torch.empty``
+    and its combine counters are the device's shared buffer.  Lengths are
+    clamped to [0, T]; rows with ``length == 0`` return zeros (inactive
+    serving slots)."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths)
     if q.device.type != "cuda":
@@ -119,12 +174,17 @@ def decode_attention(q, k, v, lengths):
     out = torch.empty_like(q)
     if b == 0 or t == 0:
         return out.zero_()
+    plan = split_plan(b, t, kh, h // kh, hd)
+    partial = torch.empty(plan.partial_shape, dtype=torch.float32,
+                          device=q.device)
+    counters = _counters(q.device, plan.counters)
     lib, fn = _launcher()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
                 out.data_ptr(), b, t, kh, h // kh, hd, _DTYPES[q.dtype],
-                stream)
+                stream, partial.data_ptr(), counters.data_ptr(), plan.splits,
+                plan.chunk)
     raise_on_launch_error(lib, "decode_attention", rc, "decode_attention")
     decode_attention.launches += 1
     return out

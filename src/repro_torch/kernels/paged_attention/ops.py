@@ -27,8 +27,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ops import (
-    _DTYPES, check_cuda_inputs, check_shape, decode_attention_plain,
-    raise_on_launch_error)
+    _DTYPES, SplitPlan, _counters, check_cuda_inputs, check_shape,
+    decode_attention_plain, raise_on_launch_error)
 
 
 def gather_pages(pool, page_table):
@@ -59,15 +59,10 @@ MAX_SPLIT_PAGES = 64      # page ids one block keeps (csrc/decode_split.cuh)
 
 
 @dataclass(frozen=True)
-class SplitPlan:
-    """How the kernel cuts a (B, W)-page table: ``chunk_pages`` pages
-    (``chunk`` keys) per split, ``splits`` splits per slot, partial states
-    of shape ``partial_shape`` (fp32) and ``counters`` combine counters."""
+class PagedSplitPlan(SplitPlan):
+    """A :class:`SplitPlan` over a page table: each chunk is
+    ``chunk_pages`` whole pages."""
     chunk_pages: int
-    chunk: int
-    splits: int
-    partial_shape: tuple
-    counters: int
 
 
 @functools.lru_cache(maxsize=256)
@@ -80,22 +75,10 @@ def split_plan(batch, width, block, num_kv, group, head_dim):
     pages = min(MAX_SPLIT_PAGES, max(1, SPLIT_KEYS // block))
     chunk = pages * block
     splits = max(1, -(-width // pages))
-    return SplitPlan(pages, chunk, splits,
-                     (batch, num_kv, splits, group * (head_dim + 2)),
-                     batch * num_kv)
-
-
-# device -> int32 combine counters; every launch leaves them at zero.
-# Launches on one device share them, so they must be ordered (one stream).
-_COUNTERS = {}
-
-
-def _counters(device, n):
-    buf = _COUNTERS.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
-        _COUNTERS[device] = buf
-    return buf
+    return PagedSplitPlan(
+        chunk=chunk, splits=splits,
+        partial_shape=(batch, num_kv, splits, group * (head_dim + 2)),
+        counters=batch * num_kv, chunk_pages=pages)
 
 
 @functools.lru_cache(maxsize=None)

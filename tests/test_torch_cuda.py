@@ -58,6 +58,31 @@ def test_decode_kernel_matches_plain(dev, g, hd, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge", ["split", "empty"])
+def test_decode_kernel_split_edges_and_repeated_calls(dev, edge, dtype):
+    """Lengths at the kernel's split boundaries and the full cache, or an
+    empty slot beside full windows and a length past T (clamped); two
+    calls in a row on the same combine counters give the same bits."""
+    rng = np.random.default_rng(5 if edge == "split" else 6)
+    b, t, kh, g, hd = 4, 1088, 8, 3, 128
+    split = dops.split_plan(b, t, kh, g, hd).chunk
+    lens = ([split - 1, split, split + 1, t] if edge == "split"
+            else [0, t, t + 9, 2 * split + 1])
+    q = _t(rng, (b, kh * g, hd), dtype, dev)
+    k, v = (_t(rng, (b, t, kh, hd), dtype, dev) for _ in range(2))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = dops.decode_attention.launches
+    first = dops.decode_attention(q, k, v, lengths)
+    again = dops.decode_attention(q, k, v, lengths)
+    assert dops.decode_attention.launches == before + 2
+    assert torch.equal(first, again)
+    torch.testing.assert_close(first, dops.decode_attention_plain(
+        q, k, v, lengths), atol=TOL[dtype], rtol=TOL[dtype])
+    if edge == "empty":
+        assert torch.all(first[0] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("w", [1, 4, 68])
 def test_paged_kernel_matches_plain(dev, w, dtype):
     rng = np.random.default_rng(w)
