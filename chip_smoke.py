@@ -31,6 +31,15 @@ Phases, each of which fails the run (exit code 1) if it fails:
    params, grads and Adam moments, ~45 GB): 1 warm-up and 3 measured steps
    at B=1, S=2048 with remat; finite losses, a nonzero gradient norm,
    params that moved, and a step with ``use_flash=True`` raises.
+8. The scenario registry's two backends on phase 3's full-width model (run
+   after phase 4): each ``parity-*`` scenario at its registered length
+   through ``build_backend(..., backend="engine")`` with the dense decode
+   kernel, and through the analytic simulator; decisions, overlap vectors
+   and regime sequences must be equal.  Then ``parity-3d-hetero`` on the
+   paged kernel under the coherence sanitizer (decisions equal again,
+   every page pool whole), and a sanitized flood of
+   ``hetero-decode-mixed`` (24 requests of 128 prompt tokens and 32 new
+   ones, not serialized) on the paged kernel.
 
 It prints one JSON line of kernel records, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -39,6 +48,7 @@ printing any result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -588,6 +598,144 @@ def phase_slice(torch, model, params, cfg, counters):
     return launches_of
 
 
+# ------------------------------------------------------------- phase 8 ---
+
+def percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def analytic_record(sim):
+    res = sim.run()
+    reqs = sorted(res.completed, key=lambda r: r.rid)
+    return ([(r.rid, r.decode_worker, round(r.overlap, 12)) for r in reqs],
+            [tuple(round(x, 12) for x in r.overlaps_all) for r in reqs],
+            [(a, b) for _, a, b in sim.detector.transitions],
+            int(sim.detector.regime))
+
+
+def engine_record(res):
+    reqs = sorted(res.requests, key=lambda r: int(r.request_id[1:]))
+    return ([(i, w, round(ov, 12)) for i, w, ov in res.decisions],
+            [tuple(round(x, 12) for x in r.overlaps) for r in reqs],
+            [(a, b) for _, a, b in res.regime_transitions],
+            res.final_regime)
+
+
+def run_counted(torch, runner, counters):
+    """The runner's warm-up, then ``runner.run()`` with every kernel count
+    set to 0 just before and read just after; returns (result, launches,
+    wall seconds of the run alone)."""
+    runner._warmup()
+    runner.warmup_enabled = False
+    torch.cuda.synchronize()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = runner.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, {fn.__name__: fn.launches for fn in counters}, wall
+
+
+def check_pools(runner, label):
+    for dec in runner.cluster.decoders:
+        check(dec.allocator.audit() == [],
+              f"{label}: audit {dec.allocator.audit()}")
+        check(dec.allocator.free_pages == dec.allocator.num_pages,
+              f"{label}: pages leaked")
+
+
+def phase_scenarios(torch, model, params, counters):
+    from repro_torch.serving.scenarios import build_backend, parity_scenarios
+    runs = [(name, "pallas", False) for name in parity_scenarios()]
+    runs.append(("parity-3d-hetero", "paged", True))
+    for name, impl, sanitize in runs:
+        kernel = {"pallas": "decode_attention", "paged": "paged_attention"}[impl]
+        want = analytic_record(build_backend(name, backend="analytic",
+                                             seed=0))
+        runner = build_backend(name, backend="engine", seed=0, model=model,
+                               params=params, decode_impl=impl,
+                               sanitize=sanitize)
+        check((runner.cluster.sanitizer is not None) == sanitize,
+              f"{name}: sanitizer attached {runner.cluster.sanitizer}")
+        res, launches, wall = run_counted(torch, runner, counters)
+        got = engine_record(res)
+        decisions, want_decisions = got[0], want[0]
+        agree = sum(a == b for a, b in zip(decisions, want_decisions)) / max(
+            len(want_decisions), 1)
+        ttft = [r.ttft for r in res.requests]
+        print(f"scenario {name} {impl}{' sanitized' if sanitize else ''}: "
+              f"{len(res.requests)} requests, decisions agree "
+              f"{agree:.3f}, regimes {got[2]} final {got[3]}, launches "
+              f"{launches}, TTFT p50 {percentile(ttft, 0.5) * 1e3:.1f} ms "
+              f"p99 {percentile(ttft, 0.99) * 1e3:.1f} ms, "
+              f"{wall:.2f} s")
+        check(len(decisions) == len(want_decisions) == len(runner.specs),
+              f"{name}: {len(decisions)} decisions, analytic "
+              f"{len(want_decisions)}, {len(runner.specs)} requests")
+        for label, a, b in zip(("decisions", "overlap vectors", "regime "
+                                "sequence", "final regime"), got, want):
+            check(a == b, f"{name} {impl}: {label} differ from the analytic "
+                  f"backend: {a} != {b}")
+        check(launches[kernel] > 0, f"{name}: no {kernel} launch")
+        check(sum(launches.values()) == launches[kernel],
+              f"{name}: other kernels launched: {launches}")
+        if impl == "paged":
+            check_pools(runner, name)
+        del runner, res
+    # a flood: backpressure, batched prefill and continuous batching on the
+    # paged kernel, every tick checked by the sanitizer
+    runner = build_backend("hetero-decode-mixed", backend="engine", seed=0,
+                           model=model, params=params, serialize=False,
+                           num_requests=24, input_tokens=128,
+                           output_tokens=32, decode_impl="paged",
+                           sanitize=True)
+    san = runner.cluster.sanitizer
+    check(san is not None, "flood: no sanitizer")
+    spent = [0.0, 0]
+    inner = san.check_all
+
+    def timed_check(where="tick"):
+        t0 = time.perf_counter()
+        inner(where)
+        spent[0] += time.perf_counter() - t0
+        spent[1] += 1
+    san.check_all = timed_check
+    gc.collect()            # earlier phases' clusters hold reference cycles
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, wall = run_counted(torch, runner, counters)
+    check(len(res.requests) == 24, f"flood: {len(res.requests)} of 24 done")
+    check(all(len(r.output) == 33 for r in res.requests),
+          f"flood: output lengths {[len(r.output) for r in res.requests]}")
+    check(all(len(s.tokens) == 128 for s in runner.specs),
+          "flood: prompts are not 128 tokens")
+    check(launches["paged_attention"] > 0 and
+          sum(launches.values()) == launches["paged_attention"],
+          f"flood: launches {launches}")
+    check_pools(runner, "flood")
+    occ = runner.cluster.occupancy
+    slots = sum(d.num_slots for d in runner.cluster.decoders)
+    ttft = [r.ttft for r in res.requests]
+    gen_tokens = sum(len(r.output) - 1 for r in res.requests)
+    print(f"scenario hetero-decode-mixed paged sanitized flood: 24 requests "
+          f"x 128+32 tokens, {len(occ)} ticks, peak occupancy "
+          f"{max(map(sum, occ))} of {slots} slots, launches {launches}, TTFT p50 "
+          f"{percentile(ttft, 0.5) * 1e3:.1f} ms p99 "
+          f"{percentile(ttft, 0.99) * 1e3:.1f} ms, decode "
+          f"{gen_tokens / wall:.1f} tokens/s over {wall:.2f} s "
+          f"({wall / max(len(occ), 1) * 1e3:.1f} ms a tick), sanitizer "
+          f"{spent[0] / max(spent[1], 1) * 1e3:.3f} ms a tick over "
+          f"{spent[1]} ticks, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"({base:.2f} GiB held before the run, the params among it)")
+    del runner, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------- phase 4 ---
 
 def phase_walk(torch, model, params, cfg):
@@ -687,6 +835,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_walk(torch, model, params, cfg)
     print(f"phase 4: forced walks within bound ({time.perf_counter() - t0:.1f}"
+          f" s)")
+    t0 = time.perf_counter()
+    phase_scenarios(torch, model, params, counters)
+    print(f"phase 8: scenario backends agree ({time.perf_counter() - t0:.1f}"
           f" s)")
     t0 = time.perf_counter()
     records.append(phase_flash(torch, F))

@@ -431,10 +431,11 @@ class ControlPlane:
         # backends pass sanitize=False here and attach their own richer
         # sanitizers over this plane's structures.
         self.sanitizer = None
-        if sanitize:
-            raise NotImplementedError(
-                "the coherence sanitizer is not ported yet (ROADMAP.md, "
-                "queue item 'port sanitizer')")
+        if sanitize is not False:
+            from repro_torch.analysis.sanitize import (attach_control_sanitizer,
+                                                 sanitize_enabled)
+            if sanitize_enabled(sanitize):
+                attach_control_sanitizer(self)
 
     # ------------------------------------------------------------ params ----
 

@@ -103,10 +103,6 @@ class DisaggregatedCluster:
                  control: Optional[ControlPlane] = None,
                  sanitize: Optional[bool] = None,
                  device=None):
-        if sanitize:
-            raise NotImplementedError(
-                "the coherence sanitizer is not ported yet (ROADMAP.md, "
-                "queue item 'port sanitizer')")
         self.device = resolve_device(device)
         self.model = model
         self.batch_prefill = batch_prefill
@@ -174,7 +170,16 @@ class DisaggregatedCluster:
         self.occupancy: List[Tuple[int, ...]] = []
         self.pool_utilization: List[Tuple[float, ...]] = []
         self._t0 = time.monotonic()
+
+        # Opt-in runtime coherence sanitizer (repro_torch.analysis.sanitize):
+        # slot-lifecycle guards on every decoder + a control-plane sweep
+        # per tick; the default (off) path carries no per-tick branch.
         self.sanitizer = None
+        if sanitize is not False:
+            from repro_torch.analysis.sanitize import (attach_engine_sanitizer,
+                                                       sanitize_enabled)
+            if sanitize_enabled(sanitize):
+                attach_engine_sanitizer(self)
 
     # ----------------------------------------------------------- lifecycle --
 

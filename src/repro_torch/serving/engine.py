@@ -16,8 +16,9 @@ means the slot is already free).  It tracks which KV blocks are resident so
 the prefill-to-decode hop is charged per non-resident block.
 
 Differences from the reference, all of mechanism: no ``jit`` (PyTorch runs
-eagerly, so ``warmup`` has nothing to compile), and caches are updated in
-place where the reference donates them.  Every engine runs on ``cuda``
+eagerly, so ``warmup`` runs each pass once to pay its one-time costs where
+the reference compiles it), and caches are updated in place where the
+reference donates them.  Every engine runs on ``cuda``
 unless the caller passes another ``device``.
 """
 from __future__ import annotations
@@ -34,6 +35,12 @@ from repro_torch import resolve_device
 from repro_torch.core.radix import BLOCK_SIZE, block_hashes
 from repro_torch.models.model import Model
 from repro_torch.serving.paging import PageAllocator
+
+
+def _synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _check_params(params, device: torch.device) -> None:
@@ -147,12 +154,38 @@ class PrefillEngine:
             w *= 2
         return w
 
-    def warmup(self, prompt_lengths: Sequence[int] = (),
+    def warmup(self, prompt_lengths: Sequence[int],
                suffix_lengths: Sequence[int] = (),
                batch_sizes: Sequence[int] = (1,)) -> None:
-        """Kept for the reference's callers.  The reference compiles its
-        jitted passes here; PyTorch runs eagerly, so there is nothing to
-        do."""
+        """Run one of each prompt pass a run will issue, without touching
+        the prefix cache or the stats: a cold pass per prompt length, a
+        batched pass per (width, padded length), and a resume per (width,
+        suffix length).  Where the reference compiles its jitted passes,
+        the port pays its one-time costs here (library handles, lazy
+        module loads, allocator growth), so measured TTFTs and the
+        saturation detector never see them."""
+        lengths = sorted(set(int(x) for x in prompt_lengths))
+        caches = None
+        for n in lengths:
+            _, caches = self._prefill([0] * n)
+        widths = sorted({self._width(max(1, int(b))) for b in batch_sizes})
+        for n in sorted({self._padded_len(x) for x in lengths}):
+            for w in widths:
+                self.model.prefill_batched(
+                    self.params, self._tokens(np.zeros((w, n))),
+                    self._tokens(np.ones((w,))), max_len=self.max_len)
+        if caches is not None:
+            n_max = lengths[-1]
+            suffixes = [x for x in sorted(set(int(x) for x in suffix_lengths))
+                        if 0 < x < n_max]
+            for w in widths:
+                donor = caches if w == 1 else {
+                    n: torch.cat([t] * w, dim=1) for n, t in caches.items()}
+                for x in suffixes:
+                    self.model.prefill_resume(
+                        self.params, donor, self._tokens(np.zeros((w, x))),
+                        n_max - x)
+        _synchronize(self.device)
 
     # ----------------------------------------------------------- prefill ----
 
@@ -535,9 +568,30 @@ class DecodeEngine:
         return sum(s.active for s in self.slots)
 
     def warmup(self, table_widths: Optional[Sequence[int]] = None) -> None:
-        """Kept for the reference's callers.  The reference compiles its
-        decode step per page-table width here; PyTorch runs eagerly, so
-        there is nothing to do."""
+        """Run the decode step once with every slot inactive (lengths
+        zero; whatever the pass writes is overwritten at the next
+        ``admit``, and a paged pass writes only the trash page).
+
+        On a paged engine, once per width in ``table_widths`` (see
+        :meth:`width_ladder`) and once at the live table's width, which
+        stays as it is.  Where the reference compiles the step per width,
+        the port pays each width's first launch here."""
+        lengths = torch.zeros((self.num_slots,), dtype=torch.int32,
+                              device=self.device)
+        tokens = torch.as_tensor(self.tokens, device=self.device)
+        if not self.paged:
+            self.model.decode(self.params, self.caches, tokens, lengths,
+                              decode_impl=self.decode_impl)
+        else:
+            widths = sorted({int(w) for w in (table_widths or ())}
+                            | {self.page_table.shape[1]})
+            for w in widths:
+                table = torch.zeros((self.num_slots, w), dtype=torch.int32,
+                                    device=self.device)
+                self.model.decode(self.params, self.caches, tokens, lengths,
+                                  decode_impl=self.decode_impl,
+                                  page_table=table)
+        _synchronize(self.device)
 
     # --------------------------------------------------------------- step ---
 

@@ -19,6 +19,8 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.serving.control_plane import ControlPlane  # noqa: E402
 from repro_torch.serving.disagg import DisaggregatedCluster  # noqa: E402
 from repro_torch.serving.engine import DecodeEngine, PrefillEngine  # noqa: E402
+from repro_torch.serving.engine_backend import EngineScenarioRunner  # noqa: E402
+from repro_torch.serving.scenarios import build_backend, get_scenario  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.training.data import (DataConfig, batch_for_model,  # noqa: E402
                                        batch_iterator, make_batch)
@@ -77,7 +79,22 @@ def test_entry_points_default_to_cuda_and_never_fall_back(no_cuda, cpu_model):
         DecodeEngine(model, params, num_slots=2, max_len=64)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EngineScenarioRunner(get_scenario("parity-2d-cold", fast=True))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_backend("parity-2d-cold", backend="engine", fast=True)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_scenario_runner_runs_where_its_params_live(cpu_model):
+    model, params = cpu_model
+    runner = build_backend("parity-2d-cold", backend="engine", fast=True,
+                           model=model, params=params, warmup=False)
+    assert runner.device == torch.device("cpu")
+    assert runner.cluster.device == torch.device("cpu")
+    cpu = EngineScenarioRunner(get_scenario("parity-2d-cold", fast=True),
+                               device="cpu")
+    assert cpu.cluster.decoders[0].caches["k"].device == torch.device("cpu")
 
 
 def test_cpu_only_when_named(cpu_model):
@@ -89,13 +106,24 @@ def test_cpu_only_when_named(cpu_model):
     assert cluster.decoders[0].caches["k"].device == torch.device("cpu")
 
 
-def test_sanitizer_is_not_ported_yet(cpu_model):
+def test_sanitizer_is_not_ported_yet(cpu_model, monkeypatch):
+    """The sanitizer switch works as in the reference: ``sanitize=True``
+    attaches it, ``REPRO_SANITIZE=1`` attaches it when the argument is
+    left at None, and an explicit ``sanitize=False`` wins over the
+    environment."""
     model, params = cpu_model
-    with pytest.raises(NotImplementedError, match="port sanitizer"):
-        DisaggregatedCluster(model, params, device="cpu", sanitize=True)
-    with pytest.raises(NotImplementedError, match="port sanitizer"):
-        ControlPlane(2, sanitize=True)
+    monkeypatch.delenv("REPRO_SANITIZE", raising=False)
+    assert DisaggregatedCluster(model, params, device="cpu",
+                                sanitize=True).sanitizer is not None
+    assert ControlPlane(2, sanitize=True).sanitizer is not None
     assert ControlPlane(2).sanitizer is None
+    monkeypatch.setenv("REPRO_SANITIZE", "1")
+    assert DisaggregatedCluster(model, params, device="cpu").sanitizer \
+        is not None
+    assert ControlPlane(2).sanitizer is not None
+    assert DisaggregatedCluster(model, params, device="cpu",
+                                sanitize=False).sanitizer is None
+    assert ControlPlane(2, sanitize=False).sanitizer is None
 
 
 TRAIN_SHAPE = ShapeConfig("t", 32, 2, "train")
