@@ -1,9 +1,10 @@
 """Where a decode step of the PyTorch port spends its time, on one GPU.
 
-Builds full-width Phi-4-mini 3.8B (random bf16 weights from a seed), admits
-4 requests into one ``DecodeEngine`` with 4 slots (prompts of 577-1041
-tokens, prefilled by the port's ``PrefillEngine``; the slice's decoder
-shape in ``chip_smoke.py``), and then:
+Builds a full-width model (``--arch``, Phi-4-mini 3.8B by default; random
+bf16 weights from a seed, drawn on the card), admits 4 requests into one
+``DecodeEngine`` with 4 slots (prompts of 577-1041 tokens, prefilled by the
+port's ``PrefillEngine``; the slice's decoder shape in ``chip_smoke.py``),
+and then:
 
 * times 8 decode ticks on the host clock (each tick ends in the argmax's
   copy to the host, so the device has finished);
@@ -13,7 +14,10 @@ shape in ``chip_smoke.py``), and then:
   time.
 
     PYTHONPATH=src python benchmarks/bench_torch_decode_step.py \
-        [--impl pallas|sdpa|paged|paged_sdpa]
+        [--impl pallas|sdpa|paged|paged_sdpa] [--arch qwen3-moe-30b-a3b]
+
+Any architecture of the port's registry that fits one card serves here
+(``qwen3-moe-30b-a3b`` holds ~56 GiB of bf16 params).
 
 Needs a CUDA device; without one it exits non-zero.
 """
@@ -33,6 +37,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--impl", default="pallas",
                     choices=["pallas", "sdpa", "paged", "paged_sdpa"])
+    ap.add_argument("--arch", default="phi4-mini-3.8b",
+                    help="a config name of repro_torch.configs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_torch_decode_step: needs a CUDA device", file=sys.stderr)
@@ -42,7 +48,7 @@ def main() -> int:
     from repro_torch.models import Model
     from repro_torch.serving.engine import DecodeEngine, PrefillEngine
 
-    cfg = get_config("phi4-mini-3.8b")
+    cfg = get_config(args.arch)
     model = Model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         torch.bfloat16, device="cuda")

@@ -22,14 +22,22 @@ def _tensor(a, dtype, device):
                                                          dtype=dtype)
 
 
+def tree_from_numpy(node, *, dtype, device, index=None):
+    """A nested dict of float32 numpy leaves as the same dict of tensors on
+    ``device`` in ``dtype``; with ``index``, each leaf's entry ``index``
+    along its first axis."""
+    if isinstance(node, dict):
+        return {k: tree_from_numpy(v, dtype=dtype, device=device, index=index)
+                for k, v in node.items()}
+    return _tensor(node if index is None else node[index], dtype, device)
+
+
 def params_from_numpy(tree, cfg: ModelConfig, *, dtype, device):
     """The reference params ``tree`` (float32 numpy leaves) as the port's
     params on ``device`` in ``dtype``: the stacked periods are split into
     the port's flat list of layers, in layer order."""
     def conv(node, index=None):
-        if isinstance(node, dict):
-            return {k: conv(v, index) for k, v in node.items()}
-        return _tensor(node if index is None else node[index], dtype, device)
+        return tree_from_numpy(node, dtype=dtype, device=device, index=index)
 
     stack = tree["stack"]
     period = len(stack)

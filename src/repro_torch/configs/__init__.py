@@ -1,10 +1,13 @@
 """Architecture config registry of the PyTorch port.
 
 ``get_config(name)`` returns the full published config; ``get_reduced(name)``
-returns a tiny same-family config for CPU tests.  The port runs the
-attention-only dense family, so the registry holds phi4-mini (the serving
-and training slices) and stablelm-3b (the training example's base); the
-other architectures join as their model families are ported (ROADMAP.md).
+returns a tiny same-family config for CPU tests.  The registry holds the
+architectures whose families the port runs: the attention-only dense
+models (phi4-mini, the serving and training slices; stablelm-3b, the
+training example's base; minitron-4b, nemotron-4-340b and the paper's own
+llama-3.1-70b) and the MoE family (qwen3-moe-30b-a3b, arctic-480b).  The
+hybrid, SSM, encoder-decoder and VLM architectures join as their families
+are ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,8 +19,13 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 _MODULES = {
+    "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
+    "minitron-4b": "repro_torch.configs.minitron_4b",
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "llama-3.1-70b": "repro_torch.configs.llama31_70b",
 }
 
 

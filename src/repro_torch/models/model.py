@@ -1,10 +1,13 @@
 """The decoder model on torch: port of ``src/repro/models/model.py`` for the
-attention-only dense family (embed, then per layer RMSNorm + GQA attention
-and RMSNorm + MLP, final norm, untied unembed).
+attention-only families, dense and MoE (embed, then per layer RMSNorm +
+GQA attention and RMSNorm + MLP or MoE, final norm, untied unembed).
 
-Parameters are a dict: ``embed`` (V, D), ``unembed`` (D, V), ``final_norm``
-and ``layers``, a list of per-layer dicts ``{"attn": ..., "mlp": ...}``
-(the reference's per-period stack, split; ``repro_torch.bridge`` converts).
+Layers follow the reference's period layout (``layer_layout``): layer i
+has the block ``descs[i % period]``, whose ``mlp`` is ``"dense"`` or
+``"moe"``.  Parameters are a dict: ``embed`` (V, D), ``unembed`` (D, V),
+``final_norm`` and ``layers``, a list of per-layer dicts ``{"attn": ...,
+"mlp": ...}`` or ``{"attn": ..., "moe": ...}`` (the reference's per-period
+stack, split; ``repro_torch.bridge`` converts).
 Caches keep the reference's stacked layout at the public functions:
 ``{"k": (P, B, T, K, hd), "v": ...}`` dense, ``{"k": (P, N, block, K, hd),
 ...}`` paged, with P the number of layers; layer i works on the view
@@ -14,18 +17,57 @@ Caches keep the reference's stacked layout at the public functions:
 leave their inputs as they were; ``decode`` updates ``caches`` in place (the
 reference donates them).  Logits come from a bf16 product with ``unembed``
 and are returned as fp32.  ``train_loss`` is the teacher-forced
-cross-entropy; with ``use_flash`` set its attention runs the CUDA flash
-kernel, which has no gradient (as in the reference, which trains without
-it).
+cross-entropy, plus the MoE load-balance term; with ``use_flash`` set its
+attention runs the CUDA flash kernel, which has no gradient (as in the
+reference, which trains without it).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+
+
+@dataclass(frozen=True)
+class BlockDesc:
+    mixer: str                 # attn | mamba | mlstm | slstm
+    mlp: Optional[str]         # dense | moe | None
+    cross: bool = False
+
+
+def layer_layout(cfg: ModelConfig):
+    """Return (period, [BlockDesc per position within the period])."""
+    if cfg.family == "ssm":
+        x = cfg.xlstm
+        period = x.slstm_every
+        descs = [BlockDesc("slstm" if i % x.slstm_every == x.slstm_offset
+                           else "mlstm", None) for i in range(period)]
+        return period, descs
+    period = cfg.attn_layer_period
+    if cfg.moe is not None:
+        period = int(np.lcm(period, cfg.moe.every_k_layers))
+    descs = []
+    for i in range(period):
+        mixer = "attn"
+        if cfg.family == "hybrid" and i % cfg.attn_layer_period != cfg.attn_layer_offset:
+            mixer = "mamba"
+        if cfg.moe is not None and i % cfg.moe.every_k_layers == cfg.moe.moe_layer_offset:
+            mlp = "moe"
+        elif cfg.d_ff > 0:
+            mlp = "dense"
+        else:
+            mlp = None
+        descs.append(BlockDesc(mixer, mlp, cross=cfg.cross_attention))
+    assert cfg.num_layers % period == 0, (cfg.name, cfg.num_layers, period)
+    return period, descs
 
 
 def _unsupported(cfg: ModelConfig):
@@ -35,8 +77,6 @@ def _unsupported(cfg: ModelConfig):
         return "encoder-decoder and VLM paths"
     if cfg.family in ("hybrid", "ssm"):
         return "SSM (models/ssm.py)"
-    if cfg.moe is not None or cfg.family == "moe":
-        return "MoE (models/moe.py)"
     return None
 
 
@@ -46,8 +86,11 @@ class Model:
         if item is not None:
             raise NotImplementedError(
                 f"{cfg.name} ({cfg.family}) waits for the ROADMAP item "
-                f"'{item}'; the port runs attention-only dense models")
+                f"'{item}'; the port runs attention-only models, dense and "
+                f"MoE")
         self.cfg = cfg
+        self.period, self.descs = layer_layout(cfg)
+        self.n_periods = cfg.num_layers // self.period
         self.n_layers = cfg.num_layers
         self.use_flash = False   # the loss's attention on the flash kernel
 
@@ -56,9 +99,10 @@ class Model:
     def init(self, generator: torch.Generator, dtype=torch.float32,
              device=None):
         """Random weights with the reference's distributions and scales
-        (model.py:110-133, layers.py:71-83, 306-315), drawn from
-        ``generator`` on ``device`` (``cuda`` unless the caller names
-        another; the generator must live there too)."""
+        (model.py:110-133, layers.py:71-83, 306-315, moe.py:23-40), drawn
+        from ``generator`` on ``device`` (``cuda`` unless the caller names
+        another; the generator must live there too), one leaf at a time in
+        fp32 and cast to ``dtype``."""
         cfg = self.cfg
         dev = resolve_device(device)
         d, v = cfg.d_model, cfg.vocab_size
@@ -66,10 +110,19 @@ class Model:
             "embed": L._init(generator, (v, d), 0.02, dtype, dev),
             "unembed": L._init(generator, (d, v), d ** -0.5, dtype, dev),
             "final_norm": L.rmsnorm_init(d, dtype, dev),
-            "layers": [{"attn": L.attention_init(generator, cfg, dtype, dev),
-                        "mlp": L.mlp_init(generator, cfg, dtype, dev)}
-                       for _ in range(self.n_layers)],
+            "layers": [self._block_init(generator, self.descs[i % self.period],
+                                        dtype, dev)
+                       for i in range(self.n_layers)],
         }
+
+    def _block_init(self, generator, desc: BlockDesc, dtype, device):
+        cfg = self.cfg
+        p = {"attn": L.attention_init(generator, cfg, dtype, device)}
+        if desc.mlp == "dense":
+            p["mlp"] = L.mlp_init(generator, cfg, dtype, device)
+        elif desc.mlp == "moe":
+            p["moe"] = moe_lib.moe_init(generator, cfg, dtype, device)
+        return p
 
     # ----------------------------------------------------------- caches ----
 
@@ -90,39 +143,70 @@ class Model:
         there; never allocated)."""
         return self._zeros(num_pages + 1, block, device)
 
-    # All three hold for every model the port builds (attention-only).
-    supports_paged_decode = True
-    supports_padded_prefill = True
-    supports_prefill_resume = True
+    # The reference's capability gates (model.py:338-345, 400-418): each
+    # needs a pure causal-attention stack, which every model the port
+    # builds is.
+    def _attention_only(self) -> bool:
+        return (all(d.mixer == "attn" and not d.cross for d in self.descs)
+                and self.cfg.family not in ("encdec", "vlm"))
+
+    @property
+    def supports_paged_decode(self) -> bool:
+        """The shared page pool holds attention K/V only."""
+        return self._attention_only()
+
+    @property
+    def supports_padded_prefill(self) -> bool:
+        """Right-padded ragged prompt batches are exact for causal
+        attention: a padding token is never attended by an earlier query."""
+        return self._attention_only()
+
+    @property
+    def supports_prefill_resume(self) -> bool:
+        """A resumed prompt pass needs every mixer's state in the KV
+        cache."""
+        return self._attention_only()
 
     # ------------------------------------------------------------ stack ----
 
     def _run_stack(self, params, x, caches, *, positions, write_index=None,
                    decode_impl="sdpa", page_table=None, remat=False):
-        """The layers in order.  ``caches=None`` is the loss's pass (no
-        cache, nothing written); ``remat`` recomputes each layer in the
-        backward pass instead of keeping its activations (the reference
-        checkpoints the scan body, model.py:228-229)."""
+        """The layers in order; returns (x, the sum of the MoE layers'
+        ``moe_aux_loss``, a 0-d fp32 tensor, or 0.0 without MoE layers),
+        as the reference's scan body sums it (model.py:209-226).
+        ``caches=None`` is the loss's pass (no cache, nothing written);
+        ``remat`` recomputes each layer in the backward pass instead of
+        keeping its activations (the reference checkpoints the scan body,
+        model.py:228-229)."""
+        aux_sum = 0.0
         for i, lp in enumerate(params["layers"]):
             kv = None if caches is None else {"k": caches["k"][i],
                                               "v": caches["v"][i]}
             args = (lp, x, kv, positions, write_index, decode_impl,
                     page_table)
             if remat:
-                x = checkpoint(self._layer, *args, use_reentrant=False)
+                x, aux = checkpoint(self._layer, *args, use_reentrant=False)
             else:
-                x = self._layer(*args)
-        return x
+                x, aux = self._layer(*args)
+            if aux is not None:
+                aux_sum = aux_sum + aux
+        return x, aux_sum
 
     def _layer(self, lp, x, kv, positions, write_index, decode_impl,
                page_table):
+        """One block -> (x, its ``moe_aux_loss`` or None)."""
         cfg = self.cfg
         h, _ = L.attention(lp["attn"], x, cfg, positions=positions,
                            kv_cache=kv, write_index=write_index,
                            use_flash=self.use_flash, decode_impl=decode_impl,
                            page_table=page_table)
         x = x + h
-        return x + L.mlp(lp["mlp"], x, cfg)
+        if "moe" in lp:
+            h, aux = moe_lib.moe(lp["moe"], x, cfg)
+            return x + h, aux["moe_aux_loss"]
+        if "mlp" in lp:
+            x = x + L.mlp(lp["mlp"], x, cfg)
+        return x, None
 
     def _embed(self, params, tokens):
         tokens = torch.as_tensor(tokens, device=params["embed"].device)
@@ -138,14 +222,19 @@ class Model:
     # ------------------------------------------------------------- train ---
 
     def train_loss(self, params, batch, *, remat=True):
-        """Next-token cross-entropy of ``batch["tokens"]`` (B,S) int, a
-        0-d fp32 tensor on the params' device (model.py:275-288; the dense
-        family has no MoE aux loss and no frontend offset)."""
+        """Next-token cross-entropy of ``batch["tokens"]`` (B,S) int, plus
+        0.01 x the MoE aux loss per period when the model has MoE layers; a
+        0-d fp32 tensor on the params' device (model.py:275-288; the port's
+        families have no frontend offset)."""
         x = self._embed(params, batch["tokens"])
-        x = self._run_stack(params, x, None, positions=None, remat=remat)
+        x, aux = self._run_stack(params, x, None, positions=None,
+                                 remat=remat)
         x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         tokens = torch.as_tensor(batch["tokens"], device=x.device).long()
-        return _chunked_ce(x[:, :-1], tokens[:, 1:], params["unembed"])
+        loss = _chunked_ce(x[:, :-1], tokens[:, 1:], params["unembed"])
+        if self.cfg.moe is not None:
+            loss = loss + 0.01 * aux / max(self.n_periods, 1)
+        return loss
 
     # ----------------------------------------------------------- serving ---
 
@@ -156,7 +245,7 @@ class Model:
         b, s = x.shape[0], x.shape[1]
         caches = self.cache_init(b, max_len or s, x.device)
         positions = torch.arange(s, device=x.device)
-        x = self._run_stack(params, x, caches, positions=positions,
+        x, _ = self._run_stack(params, x, caches, positions=positions,
                             write_index=0)
         return self._logits(params, x[:, -1:]), caches
 
@@ -167,7 +256,7 @@ class Model:
         b, s = x.shape[0], x.shape[1]
         caches = self.cache_init(b, max_len or s, x.device)
         positions = torch.arange(s, device=x.device)
-        x = self._run_stack(params, x, caches, positions=positions,
+        x, _ = self._run_stack(params, x, caches, positions=positions,
                             write_index=0)
         lengths = torch.as_tensor(lengths, device=x.device).long()
         idx = torch.clamp(lengths - 1, 0, s - 1)
@@ -185,7 +274,7 @@ class Model:
         s = x.shape[1]
         start = int(start)
         positions = torch.arange(s, device=x.device) + start
-        x = self._run_stack(params, x, caches, positions=positions,
+        x, _ = self._run_stack(params, x, caches, positions=positions,
                             write_index=start)
         return self._logits(params, x[:, -1:]), caches
 
@@ -206,7 +295,7 @@ class Model:
             cur = int(cur_index)
             positions = torch.full((b, 1), cur, dtype=torch.int32,
                                    device=x.device)
-        x = self._run_stack(params, x, caches, positions=positions,
+        x, _ = self._run_stack(params, x, caches, positions=positions,
                             write_index=cur, decode_impl=decode_impl,
                             page_table=page_table)
         return self._logits(params, x), caches

@@ -28,6 +28,9 @@ COPIES = [
     "core/kvbm.py", "core/games.py", "core/__init__.py",
     "serving/workload.py", "serving/simulator.py", "serving/scenarios.py",
     "analysis/sanitize.py",
+    "configs/qwen3_moe_30b_a3b.py", "configs/arctic_480b.py",
+    "configs/minitron_4b.py", "configs/nemotron_4_340b.py",
+    "configs/llama31_70b.py",
 ]
 
 
@@ -45,7 +48,7 @@ def _tree(path):
 
 
 def test_copy_list():
-    assert len(COPIES) == len(set(COPIES)) == 22
+    assert len(COPIES) == len(set(COPIES)) == 27
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -105,9 +108,22 @@ def test_engine_backend_keeps_the_reference_stream_and_run():
     assert calls(PORT / rel) == calls(REF / rel)
 
 
+def test_model_layout_is_the_references():
+    """The port's model lays its layers out by the reference's
+    ``BlockDesc`` and ``layer_layout`` (model.py:38-71), unchanged."""
+    def defs(path):
+        tree = ast.parse(path.read_text())
+        return {n.name: ast.dump(n) for n in tree.body
+                if isinstance(n, (ast.ClassDef, ast.FunctionDef))
+                and n.name in ("BlockDesc", "layer_layout")}
+    port = defs(PORT / "models" / "model.py")
+    assert set(port) == {"BlockDesc", "layer_layout"}
+    assert port == defs(REF / "models" / "model.py")
+
+
 def test_registry_functions_are_copies():
-    """The port's registry holds the dense configs it runs; its lookup
-    functions are the reference's."""
+    """The port's registry holds the configs of the families it runs; its
+    lookup functions are the reference's."""
     def functions(path):
         tree = ast.parse(path.read_text())
         return {n.name: ast.dump(n) for n in tree.body

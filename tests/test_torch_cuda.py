@@ -42,7 +42,8 @@ def _t(rng, shape, dtype, dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g,hd", [(1, 64), (3, 128), (4, 32), (8, 128)])
+@pytest.mark.parametrize("g,hd", [(1, 64), (3, 128), (4, 32), (8, 128),
+                                  (8, 64)])
 def test_decode_kernel_matches_plain(dev, g, hd, dtype):
     rng = np.random.default_rng(g * hd)
     b, t, kh = 4, 700, 2
@@ -124,6 +125,34 @@ def test_paged_kernel_split_edges_and_repeated_calls(dev, edge, dtype):
     torch.testing.assert_close(first, pops.paged_attention_plain(
         q, kp, vp, table, lengths), atol=TOL[dtype], rtol=TOL[dtype])
     if edge == "empty":
+        assert torch.all(first[0] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["w1", "w4", "w68", "split", "empty"])
+def test_paged_kernel_at_qwen3_shape(dev, case, dtype):
+    """Qwen3-30B-A3B's attention shape, K = 4 KV heads of G = 8 query heads
+    at hd = 64: page-table widths 1, 4 and 68, then lengths at the split
+    boundaries, or an empty slot beside full windows, at W = 68; two calls
+    in a row give the same bits."""
+    rng = np.random.default_rng(len(case) * 10 + (dtype == torch.float32))
+    b, n, kh, g, hd = 4, 4 * 68 + 1, 4, 8, 64
+    w = {"w1": 1, "w4": 4}.get(case, 68)
+    split = pops.split_plan(b, w, 16, kh, g, hd).chunk
+    lens = {"split": [split - 1, split, split + 1, 16 * w],
+            "empty": [0, 16 * w, 16 * w + 9, 2 * split + 1]}.get(
+                case, [0, 16 * w - 3, 16 * w, 16 * w + 5])
+    q = _t(rng, (b, kh * g, hd), dtype, dev)
+    kp, vp = (_t(rng, (n, 16, kh, hd), dtype, dev) for _ in range(2))
+    table = torch.from_numpy(rng.integers(1, n, (b, w)).astype(np.int32))
+    table = table.to(dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    first = pops.paged_attention(q, kp, vp, table, lengths)
+    again = pops.paged_attention(q, kp, vp, table, lengths)
+    assert torch.equal(first, again)
+    torch.testing.assert_close(first, pops.paged_attention_plain(
+        q, kp, vp, table, lengths), atol=TOL[dtype], rtol=TOL[dtype])
+    if lens[0] == 0:
         assert torch.all(first[0] == 0)
 
 

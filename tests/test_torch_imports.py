@@ -106,7 +106,7 @@ def test_cpu_only_when_named(cpu_model):
     assert cluster.decoders[0].caches["k"].device == torch.device("cpu")
 
 
-def test_sanitizer_is_not_ported_yet(cpu_model, monkeypatch):
+def test_sanitizer_switch_matches_reference(cpu_model, monkeypatch):
     """The sanitizer switch works as in the reference: ``sanitize=True``
     attaches it, ``REPRO_SANITIZE=1`` attaches it when the argument is
     left at None, and an explicit ``sanitize=False`` wins over the
@@ -154,3 +154,29 @@ def test_training_on_the_cpu_only_when_named(cpu_model):
     assert tr.device == torch.device("cpu")
     assert all(t.device == torch.device("cpu") for t in
                (tr.state["params"]["embed"], tr.state["opt"]["step"]))
+
+
+def test_moe_module_imports_only_torch_and_numpy():
+    path = ROOT / "src" / "repro_torch" / "models" / "moe.py"
+    names = {n.split(".")[0] for n in _imported(ast.parse(path.read_text()))}
+    assert names & set(FORBIDDEN) == set()
+    assert names <= {"__future__", "numpy", "torch", "repro_torch"}
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "arctic-480b"])
+def test_model_builds_the_moe_family(name):
+    model = Model(get_reduced(name))
+    assert {d.mlp for d in model.descs} == {"moe"}
+    params = model.init(torch.Generator().manual_seed(0), torch.bfloat16,
+                        device="cpu")
+    assert all(set(layer) == {"attn", "moe"} for layer in params["layers"])
+
+
+@pytest.mark.parametrize("family,item", [
+    ("hybrid", "SSM"), ("ssm", "SSM"), ("encdec", "encoder-decoder"),
+    ("vlm", "encoder-decoder")])
+def test_model_still_refuses_the_other_families(family, item):
+    import dataclasses
+    cfg = dataclasses.replace(get_reduced("qwen3-moe-30b-a3b"), family=family)
+    with pytest.raises(NotImplementedError, match=item):
+        Model(cfg)
