@@ -41,11 +41,20 @@ Phases, each of which fails the run (exit code 1) if it fails:
    every page pool whole), and a sanitized flood of
    ``hetero-decode-mixed`` (24 requests of 128 prompt tokens and 32 new
    ones, not serialized) on the paged kernel.
-9. The MoE slice, last, after every earlier tensor is freed: K1 and K2
+9. The MoE slice, after every earlier tensor is freed: K1 and K2
    held and timed as in phase 2 at Qwen3-30B-A3B's attention shape (G =
    8, hd = 64, K = 4), then full-width ``qwen3-moe-30b-a3b`` (48 layers,
    128 experts top-8, ~30.1 B params, bf16 drawn on the card) served as in
    phase 3 (48 kernel launches a decode step) and walked as in phase 4.
+10. The SSM and hybrid slice, last, after phase 9's params are freed: K1
+   held and timed at Jamba's attention shape (G = 4, hd = 128, K = 8; K2
+   is not on this path), then ``jamba-v0.1-52b`` at full width and 16 of
+   its 32 layers (7 Mamba and 1 attention layer a period, MoE on every
+   second layer, ~26.0 B params) and ``xlstm-125m`` at full size, each
+   serving phase 3's requests on the dense decode kernel (K1 launched once
+   per attention layer and decode step: 2 on Jamba, none on xLSTM), with
+   no prefix resumed, no prompt right-padded and a paged decoder refused,
+   then walked as in phase 4 (``"pallas"`` against ``"sdpa"``).
 
 It prints one JSON line of kernel records, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -211,13 +220,13 @@ def phase_kernels(torch, F):
     return hold_decode_kernels(torch, F, gen, 24, 8, 128)  # Phi-4-mini
 
 
-def hold_decode_kernels(torch, F, gen, h, kh, hd, suffix=""):
+def hold_decode_kernels(torch, F, gen, h, kh, hd, suffix="", paged=True):
     """K1 and K2 at a main path's shape (B = SLOTS, T = MAX_LEN, W = 68
     pages of 16; ``h`` query heads over ``kh`` KV heads of ``hd``): edge
     lengths held against the plain versions in fp32 and bf16, each case
     called twice and bit-identical, then bf16 timed beside the plain
-    version and SDPA.  Returns the two kernel records, named with
-    ``suffix``."""
+    version and SDPA.  Returns the kernel records, named with ``suffix``:
+    K1's, and K2's unless ``paged`` is False (a path without paged KV)."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.paged_attention import ops as pops
 
@@ -258,7 +267,7 @@ def hold_decode_kernels(torch, F, gen, h, kh, hd, suffix=""):
     split = pops.split_plan(SLOTS, 68, 16, kh, g, hd).chunk
     edges = ([split - 1, split, split + 1, 68 * 16],
              [0, 68 * 16, 68 * 16 + 9, 2 * split + 1])
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16) if paged else ():
         worst = 0.0
         cases = [(w, [0, 1, max(1, 16 * w - 5), 16 * w + 7])
                  for w in (1, 2, 4, 8, 16, 32, 64, 68)]
@@ -318,6 +327,9 @@ def hold_decode_kernels(torch, F, gen, h, kh, hd, suffix=""):
         "decode_attention", dops.decode_attention,
         dops.decode_attention_plain, sets, mask_sets, kv_bytes + io_bytes))
     del sets, mask_sets
+    if not paged:
+        torch.cuda.empty_cache()
+        return report(records, lens, h, kh, hd)
 
     psets = []
     for _ in range(8):
@@ -342,6 +354,10 @@ def hold_decode_kernels(torch, F, gen, h, kh, hd, suffix=""):
         psets, gsets, kv_bytes + io_bytes + SLOTS * 68 * 4))
     del psets, gsets
     torch.cuda.empty_cache()
+    return report(records, lens, h, kh, hd)
+
+
+def report(records, lens, h, kh, hd):
     for r in records:
         print(f"{r['name']}: kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f}"
               f" ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
@@ -536,6 +552,11 @@ def phase_train(torch, cfg, counters):
 
 # ------------------------------------------------------------- phase 3 ---
 
+def percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
 def template_prompt(template: int, n: int, vocab: int):
     return [(template * 1_000_003 + 7 * i) % vocab for i in range(n)]
 
@@ -570,14 +591,28 @@ def serve(torch, model, params, cfg, decode_impl, requests, counters):
     return cluster, done, wall, steps[0], launches
 
 
+def slice_requests(vocab: int):
+    """The serving slice's 12 requests: prompts of 512-1024 tokens over 3
+    templates, 32 new tokens each; and a short one that warms the
+    allocator and the library handles outside the measured runs."""
+    lens = [512 + (i * 173) % 513 for i in range(12)]
+    return ([(f"req-{i}", template_prompt(i % 3, lens[i], vocab), 32)
+             for i in range(12)],
+            [("warm", template_prompt(7, 520, vocab), 2)])
+
+
+def serving_line(torch, done, wall):
+    ttft = sorted(r.ttft for r in done)
+    gen_tokens = sum(len(r.output) - 1 for r in done)
+    return (f"TTFT p50 {percentile(ttft, 0.5) * 1e3:.1f} ms p99 "
+            f"{percentile(ttft, 0.99) * 1e3:.1f} ms, decode "
+            f"{gen_tokens / wall:.1f} tokens/s over {wall:.2f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def phase_slice(torch, model, params, cfg, counters):
-    rng_lens = [512 + (i * 173) % 513 for i in range(12)]
-    requests = [(f"req-{i}", template_prompt(i % 3, rng_lens[i],
-                                             cfg.vocab_size), 32)
-                for i in range(12)]
-    # warm the allocator and the library handles outside the measured runs
-    serve(torch, model, params, cfg, "pallas",
-          [("warm", template_prompt(7, 520, cfg.vocab_size), 2)], counters)
+    requests, warm = slice_requests(cfg.vocab_size)
+    serve(torch, model, params, cfg, "pallas", warm, counters)
     logs = {}
     launches_of = {}
     for impl, kernel in (("pallas", "decode_attention"),
@@ -621,10 +656,6 @@ def phase_slice(torch, model, params, cfg, counters):
 
 
 # ------------------------------------------------------------- phase 8 ---
-
-def percentile(xs, q):
-    xs = sorted(xs)
-    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
 
 
 def analytic_record(sim):
@@ -760,9 +791,11 @@ def phase_scenarios(torch, model, params, counters):
 
 # ------------------------------------------------------------- phase 4 ---
 
-def phase_walk(torch, model, params, cfg):
+def phase_walk(torch, model, params, cfg, paged=True):
     """16 forced decode steps on the kernel path and on the plain path
-    (each fed the plain path's argmax), from two copies of one prefill.
+    (each fed the plain path's argmax), from two copies of one prefill:
+    ``"pallas"`` against ``"sdpa"``, and unless ``paged`` is False (a model
+    without paged KV) ``"paged"`` against ``"paged_sdpa"``.
 
     In an MoE model the two paths' bf16 hidden states differ in the last
     bit, so where a router's k-th and (k+1)-th logits nearly tie the paths
@@ -782,14 +815,15 @@ def phase_walk(torch, model, params, cfg):
     logits, caches = pre.prefill(toks)
     first = int(logits.argmax())
     # dense: kernel vs plain on two copies of the same cache
-    dec = DecodeEngine(model, params, num_slots=1, max_len=MAX_LEN,
-                       decode_impl="paged", device="cuda")
-    dec.admit(0, "walk", caches, first, prompt_len=len(toks), max_new=16)
-    table = torch.as_tensor(dec.page_table, device="cuda")
-    pairs = (("pallas", "sdpa", caches,
-              {n: t.clone() for n, t in caches.items()}, None),
-             ("paged", "paged_sdpa", dec.caches,
-              {n: t.clone() for n, t in dec.caches.items()}, table))
+    pairs = [("pallas", "sdpa", caches,
+              {n: t.clone() for n, t in caches.items()}, None)]
+    if paged:
+        dec = DecodeEngine(model, params, num_slots=1, max_len=MAX_LEN,
+                           decode_impl="paged", device="cuda")
+        dec.admit(0, "walk", caches, first, prompt_len=len(toks), max_new=16)
+        table = torch.as_tensor(dec.page_table, device="cuda")
+        pairs.append(("paged", "paged_sdpa", dec.caches,
+                      {n: t.clone() for n, t in dec.caches.items()}, table))
     recorded, flips, following = [], [], [False]
     route = moe_lib._route
 
@@ -849,19 +883,10 @@ def phase_walk(torch, model, params, cfg):
 MOE_ARCH = "qwen3-moe-30b-a3b"
 
 
-def phase_moe(torch, F, counters):
-    """The MoE slice at full width: K1 and K2 held and timed at the model's
-    attention shape, then the model (bf16, drawn on the card one leaf at a
-    time) served through the cluster with both kernels and walked against
-    the plain paths, as phases 3 and 4 do for Phi-4-mini."""
-    from repro_torch.configs import get_config
+def init_on_card(torch, cfg):
+    """``cfg``'s model with bf16 weights drawn on the card from seed 0, one
+    leaf at a time; prints its shape, size and init time."""
     from repro_torch.models import Model
-
-    cfg = get_config(MOE_ARCH)
-    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    suffix = f"_g{h // kh}_hd{hd}"
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    records = hold_decode_kernels(torch, F, gen, h, kh, hd, suffix)
 
     model = Model(cfg)
     t0 = time.perf_counter()
@@ -869,17 +894,35 @@ def phase_moe(torch, F, counters):
                         torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
     leaves = list(_leaves(params))
-    n_params = sum(t.numel() for t in leaves)
-    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
     check(all(t.dtype == torch.bfloat16 and t.is_cuda for t in leaves),
           "params are not all bf16 on the card")
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    mixers = {m: model.mixers.count(m) for m in sorted(set(model.mixers))}
     m = cfg.moe
-    print(f"model: {cfg.name} {cfg.num_layers}L d={cfg.d_model} "
-          f"H={cfg.num_heads} K={cfg.num_kv_heads} hd={hd} "
-          f"experts={m.num_experts} top-{m.top_k} d_ff_expert="
-          f"{m.d_ff_expert} vocab={cfg.vocab_size}, {n_params / 1e9:.3f} B "
-          f"params bf16 ({n_bytes / 2**30:.2f} GiB), init "
-          f"{time.perf_counter() - t0:.1f} s")
+    moe = (f" experts={m.num_experts} top-{m.top_k} d_ff_expert="
+           f"{m.d_ff_expert}" if m else "")
+    print(f"model: {cfg.name} {cfg.num_layers}L {mixers} d={cfg.d_model} "
+          f"H={cfg.num_heads} K={cfg.num_kv_heads} "
+          f"hd={cfg.resolved_head_dim}{moe} vocab={cfg.vocab_size}, "
+          f"{sum(t.numel() for t in leaves) / 1e9:.3f} B params bf16 "
+          f"({n_bytes / 2**30:.2f} GiB), init {time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def phase_moe(torch, F, counters):
+    """The MoE slice at full width: K1 and K2 held and timed at the model's
+    attention shape, then the model (bf16, drawn on the card one leaf at a
+    time) served through the cluster with both kernels and walked against
+    the plain paths, as phases 3 and 4 do for Phi-4-mini."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH)
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    suffix = f"_g{h // kh}_hd{hd}"
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    records = hold_decode_kernels(torch, F, gen, h, kh, hd, suffix)
+
+    model, params = init_on_card(torch, cfg)
     launches = phase_slice(torch, model, params, cfg, counters)
     phase_walk(torch, model, params, cfg)
     for r in records:
@@ -887,6 +930,103 @@ def phase_moe(torch, F, counters):
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    return records
+
+
+# ------------------------------------------------------------ phase 10 ---
+
+HYBRID_ARCH, HYBRID_LAYERS = "jamba-v0.1-52b", 16   # two periods of 8
+SSM_ARCH = "xlstm-125m"
+
+
+def serve_recurrent(torch, model, params, cfg, counters):
+    """Phase 3's 12 requests through the cluster with the dense decode
+    kernel on a model with recurrent mixers: every request done with 33
+    tokens; K1 launched once per attention layer and decode step and no
+    other kernel; no prefix resumed; every cold bucket one exact
+    length (no right-padding); a paged decoder refused; every request
+    routed.  Returns K1's launches."""
+    from repro_torch.serving.engine import DecodeEngine
+
+    n_attn = model.mixers.count("attn")
+    requests, warm = slice_requests(cfg.vocab_size)
+    serve(torch, model, params, cfg, "pallas", warm, counters)
+    buckets = []
+    inner = model.prefill_batched
+
+    def recorded(params, tokens, lengths, max_len=None):
+        buckets.append((tokens.shape[1], lengths.tolist()))
+        return inner(params, tokens, lengths, max_len)
+    model.prefill_batched = recorded
+    try:
+        cluster, done, wall, steps, launches = serve(
+            torch, model, params, cfg, "pallas", requests, counters)
+    finally:
+        del model.prefill_batched
+    check(len(done) == 12, f"{cfg.name}: {len(done)} of 12 requests done")
+    check(all(len(r.output) == 33 for r in done),
+          f"{cfg.name}: output lengths {[len(r.output) for r in done]}")
+    check(steps > 0 and launches["decode_attention"] == n_attn * steps,
+          f"{cfg.name}: {launches['decode_attention']} K1 launches for "
+          f"{steps} decode steps of {n_attn} attention layers")
+    check(sum(launches.values()) == launches["decode_attention"],
+          f"{cfg.name}: other kernels launched: {launches}")
+    st = cluster.prefill.stats
+    check(st.reused_blocks == 0, f"{cfg.name}: a prefix was resumed")
+    check(buckets and all(set(lens) == {plen} for plen, lens in buckets),
+          f"{cfg.name}: a cold bucket right-padded a row: {buckets}")
+    check(st.padded_tokens == 0, f"{cfg.name}: {st.padded_tokens} pad tokens")
+    check(len(cluster.control.decision_log) == 12,
+          f"{cfg.name}: {len(cluster.control.decision_log)} routing decisions")
+    try:
+        DecodeEngine(model, params, num_slots=1, max_len=64,
+                     decode_impl="paged", device="cuda")
+    except ValueError as e:
+        check("paged KV" in str(e), f"{cfg.name}: paged decoder: {e!r}")
+    else:
+        fail(f"{cfg.name}: a paged decoder was built")
+    print(f"slice {cfg.name} pallas: 12 requests, {steps} decode steps, "
+          f"{launches['decode_attention']} decode_attention launches "
+          f"({n_attn} attention layers), no other kernel, resumed blocks "
+          f"{st.reused_blocks}/{st.total_blocks}, {len(buckets)} exact-length "
+          f"prompt passes, paged decoder refused, {serving_line(torch, done, wall)}")
+    del cluster, done
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["decode_attention"]
+
+
+def phase_recurrent(torch, F, counters):
+    """The SSM and hybrid families at full width: K1 held and timed at
+    Jamba's attention shape (G = 4, hd = 128, K = 8; Jamba has no paged
+    path), then jamba-v0.1-52b at 16 of its 32 layers and xlstm-125m at
+    full size, each served as phase 3 serves (K1 only) and walked as phase
+    4 walks (``"pallas"`` against ``"sdpa"``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                              num_layers=HYBRID_LAYERS)
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    suffix = f"_g{h // kh}_hd{hd}"
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    records = hold_decode_kernels(torch, F, gen, h, kh, hd, suffix,
+                                  paged=False)
+    for arch_cfg in (cfg, get_config(SSM_ARCH)):
+        t0 = time.perf_counter()
+        model, params = init_on_card(torch, arch_cfg)
+        launches = serve_recurrent(torch, model, params, arch_cfg, counters)
+        if arch_cfg is cfg:
+            records[0]["launches"] = launches
+        else:
+            check(launches == 0, f"{arch_cfg.name}: {launches} K1 launches")
+        phase_walk(torch, model, params, arch_cfg, paged=False)
+        print(f"{arch_cfg.name}: served and walked in "
+              f"{time.perf_counter() - t0:.1f} s")
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
     return records
 
 
@@ -909,7 +1049,6 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import (build, decode_attention, flash_attention,
                                      paged_attention)
-    from repro_torch.models import Model
 
     gpu = gpu_line()
     print(f"gpu: {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -932,16 +1071,7 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)")
 
     cfg = get_config("phi4-mini-3.8b")
-    model = Model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device="cuda").manual_seed(0),
-                        torch.bfloat16, device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    print(f"model: {cfg.name} {cfg.num_layers}L d={cfg.d_model} "
-          f"H={cfg.num_heads} K={cfg.num_kv_heads} vocab={cfg.vocab_size}, "
-          f"{n_params / 1e9:.3f} B params bf16, init "
-          f"{time.perf_counter() - t0:.1f} s")
+    model, params = init_on_card(torch, cfg)
     counters = (decode_attention, paged_attention, flash_attention)
     t0 = time.perf_counter()
     launches = phase_slice(torch, model, params, cfg, counters)
@@ -978,9 +1108,20 @@ def main() -> int:
     records += phase_moe(torch, F, counters)
     print(f"phase 9: {MOE_ARCH} served and walked at full width "
           f"({time.perf_counter() - t0:.1f} s)")
+    # phase 10 needs ~48 GiB of params: phase 9's are freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    print(f"before phase 10: {held:.3f} GiB held")
+    check(held < 4.0, f"{held:.2f} GiB still held before phase 10")
+    t0 = time.perf_counter()
+    records += phase_recurrent(torch, F, counters)
+    print(f"phase 10: {HYBRID_ARCH} ({HYBRID_LAYERS} layers) and {SSM_ARCH} "
+          f"served and walked at full width ({time.perf_counter() - t0:.1f} "
+          f"s)")
 
     for r in records:
-        if "launches" not in r:             # phase 9 counted its own
+        if "launches" not in r:             # phases 9-10 counted their own
             r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -5,9 +5,10 @@ returns a tiny same-family config for CPU tests.  The registry holds the
 architectures whose families the port runs: the attention-only dense
 models (phi4-mini, the serving and training slices; stablelm-3b, the
 training example's base; minitron-4b, nemotron-4-340b and the paper's own
-llama-3.1-70b) and the MoE family (qwen3-moe-30b-a3b, arctic-480b).  The
-hybrid, SSM, encoder-decoder and VLM architectures join as their families
-are ported (ROADMAP.md).
+llama-3.1-70b), the MoE family (qwen3-moe-30b-a3b, arctic-480b), the
+hybrid Mamba/attention family (jamba-v0.1-52b) and the xLSTM family
+(xlstm-125m).  The encoder-decoder and VLM architectures join as their
+families are ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ _MODULES = {
     "arctic-480b": "repro_torch.configs.arctic_480b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "llama-3.1-70b": "repro_torch.configs.llama31_70b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
 }
 
 

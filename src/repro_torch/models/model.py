@@ -1,17 +1,27 @@
 """The decoder model on torch: port of ``src/repro/models/model.py`` for the
-attention-only families, dense and MoE (embed, then per layer RMSNorm +
-GQA attention and RMSNorm + MLP or MoE, final norm, untied unembed).
+dense, MoE, hybrid (Mamba + attention) and SSM (xLSTM) families: embed,
+then per layer a sequence mixer (RMSNorm + GQA attention, or a Mamba,
+mLSTM or sLSTM block of ``ssm.py``) and an MLP, an MoE or none, then the
+final norm and an untied unembed.
 
 Layers follow the reference's period layout (``layer_layout``): layer i
-has the block ``descs[i % period]``, whose ``mlp`` is ``"dense"`` or
-``"moe"``.  Parameters are a dict: ``embed`` (V, D), ``unembed`` (D, V),
-``final_norm`` and ``layers``, a list of per-layer dicts ``{"attn": ...,
-"mlp": ...}`` or ``{"attn": ..., "moe": ...}`` (the reference's per-period
-stack, split; ``repro_torch.bridge`` converts).
-Caches keep the reference's stacked layout at the public functions:
-``{"k": (P, B, T, K, hd), "v": ...}`` dense, ``{"k": (P, N, block, K, hd),
-...}`` paged, with P the number of layers; layer i works on the view
-``caches["k"][i]``.  A Python loop over the layers replaces ``lax.scan``.
+has the block ``descs[i % period]``, whose ``mixer`` is ``"attn"``,
+``"mamba"``, ``"mlstm"`` or ``"slstm"`` and whose ``mlp`` is ``"dense"``,
+``"moe"`` or None.  Parameters are a dict: ``embed`` (V, D), ``unembed``
+(D, V), ``final_norm`` and ``layers``, a list of per-layer dicts holding
+the mixer's key and ``"mlp"`` or ``"moe"`` where the block has one (the
+reference's per-period stack, split; ``repro_torch.bridge`` converts).
+
+Caches stack each state leaf over the layers of its mixer kind only, batch
+at axis 1 (``CACHE_LEAVES``): ``{"k", "v"}`` (P_attn, B, T, K, hd) dense
+or (P_attn, N, block, K, hd) paged; ``{"ssm", "conv"}`` over the Mamba
+layers; the mLSTM's and sLSTM's leaves under ``mlstm_``/``slstm_``
+prefixes (both name a leaf ``n`` and ``m``).  Layer i works on row
+``kind_row[i]`` of its kind's leaves.  An attention-only model's caches
+are the reference's stacked K/V.  A Python loop over the layers replaces
+``lax.scan``.  As in the reference, a recurrent mixer takes its cached
+single-token step only for S == 1 with a cache; any longer pass recomputes
+its state from the window and writes the final state into the cache.
 
 ``prefill``/``prefill_batched``/``prefill_resume`` return fresh caches and
 leave their inputs as they were; ``decode`` updates ``caches`` in place (the
@@ -24,7 +34,7 @@ reference, which trains without it).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,6 +44,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 
 
 @dataclass(frozen=True)
@@ -70,13 +81,39 @@ def layer_layout(cfg: ModelConfig):
     return period, descs
 
 
+# K/V caches are bf16 whatever the compute dtype: the reference binds it as
+# attention_cache_init's default (layers.py:285, 293)
+KV_DTYPE = torch.bfloat16
+
+class Mixer(NamedTuple):
+    """A recurrent mixer kind: the prefix of its cache leaves' names (the
+    mLSTM's and sLSTM's both have an ``n`` and an ``m``), and its
+    functions in ``ssm.py``."""
+    prefix: str
+    init: Callable
+    block: Callable
+    cache_init: Callable
+
+
+RECURRENT = {
+    "mamba": Mixer("", ssm_lib.mamba_init, ssm_lib.mamba_block,
+                   ssm_lib.mamba_cache_init),
+    "mlstm": Mixer("mlstm_", ssm_lib.mlstm_init, ssm_lib.mlstm_block,
+                   ssm_lib.mlstm_cache_init),
+    "slstm": Mixer("slstm_", ssm_lib.slstm_init, ssm_lib.slstm_block,
+                   ssm_lib.slstm_cache_init),
+}
+# every mixer kind's cache leaves, as the caches name them
+CACHE_LEAVES = {"attn": ("k", "v"), "mamba": ("ssm", "conv"),
+                "mlstm": ("mlstm_C", "mlstm_n", "mlstm_m"),
+                "slstm": ("slstm_c", "slstm_n", "slstm_h", "slstm_m")}
+
+
 def _unsupported(cfg: ModelConfig):
     """The ROADMAP item that ports ``cfg``'s family, or None if the port
     runs it now."""
     if cfg.family in ("encdec", "vlm") or cfg.cross_attention or cfg.frontend:
         return "encoder-decoder and VLM paths"
-    if cfg.family in ("hybrid", "ssm"):
-        return "SSM (models/ssm.py)"
     return None
 
 
@@ -86,12 +123,17 @@ class Model:
         if item is not None:
             raise NotImplementedError(
                 f"{cfg.name} ({cfg.family}) waits for the ROADMAP item "
-                f"'{item}'; the port runs attention-only models, dense and "
-                f"MoE")
+                f"'{item}'; the port runs the dense, MoE, hybrid and SSM "
+                f"families")
         self.cfg = cfg
         self.period, self.descs = layer_layout(cfg)
         self.n_periods = cfg.num_layers // self.period
         self.n_layers = cfg.num_layers
+        self.mixers = [self.descs[i % self.period].mixer
+                       for i in range(self.n_layers)]
+        # layer i's row in the stacked cache leaves of its mixer kind
+        self.kind_row = [self.mixers[:i].count(m)
+                         for i, m in enumerate(self.mixers)]
         self.use_flash = False   # the loss's attention on the flash kernel
 
     # ------------------------------------------------------------- init ----
@@ -99,7 +141,8 @@ class Model:
     def init(self, generator: torch.Generator, dtype=torch.float32,
              device=None):
         """Random weights with the reference's distributions and scales
-        (model.py:110-133, layers.py:71-83, 306-315, moe.py:23-40), drawn
+        (model.py:110-133, layers.py:71-83, 306-315, moe.py:23-40,
+        ssm.py:25-44, 183-201, 344-356), drawn
         from ``generator`` on ``device`` (``cuda`` unless the caller names
         another; the generator must live there too), one leaf at a time in
         fp32 and cast to ``dtype``."""
@@ -117,7 +160,11 @@ class Model:
 
     def _block_init(self, generator, desc: BlockDesc, dtype, device):
         cfg = self.cfg
-        p = {"attn": L.attention_init(generator, cfg, dtype, device)}
+        if desc.mixer == "attn":
+            p = {"attn": L.attention_init(generator, cfg, dtype, device)}
+        else:
+            init = RECURRENT[desc.mixer].init
+            p = {desc.mixer: init(generator, cfg, dtype, device)}
         if desc.mlp == "dense":
             p["mlp"] = L.mlp_init(generator, cfg, dtype, device)
         elif desc.mlp == "moe":
@@ -128,24 +175,48 @@ class Model:
 
     def _zeros(self, rows, cols, device):
         cfg = self.cfg
-        shape = (self.n_layers, rows, cols, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, dtype=L.COMPUTE_DTYPE, device=device),
-                "v": torch.zeros(shape, dtype=L.COMPUTE_DTYPE, device=device)}
+        n_attn = self.mixers.count("attn")
+        if not n_attn:
+            return {}
+        shape = (n_attn, rows, cols, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=KV_DTYPE, device=device),
+                "v": torch.zeros(shape, dtype=KV_DTYPE, device=device)}
 
     def cache_init(self, batch, max_len, device):
-        """Stacked dense KV caches (P, B, T, K, hd), zeros, bf16."""
-        return self._zeros(batch, max_len, device)
+        """The decode caches (module docstring): K/V zeros in bf16, and
+        each recurrent kind's state as its ``*_cache_init`` gives it (fp32
+        states, ``-inf`` stabilisers, a bf16 conv state), stacked over the
+        layers of that kind."""
+        caches = self._zeros(batch, max_len, device)
+        for kind, mixer in RECURRENT.items():
+            n = self.mixers.count(kind)
+            if n:
+                for name, t in mixer.cache_init(self.cfg, batch,
+                                                device).items():
+                    caches[mixer.prefix + name] = \
+                        t.expand(n, *t.shape).clone()
+        return caches
 
     def paged_cache_init(self, num_pages, block, device):
         """Global KV page pools (P, num_pages + 1, block, K, hd), zeros,
         bf16: the +1 is the reserved trash page 0 (inactive slots write
-        there; never allocated)."""
+        there; never allocated).  Attention-only stacks, see
+        :attr:`supports_paged_decode`."""
+        if not self.supports_paged_decode:
+            raise ValueError(f"{self.cfg.name}: paged KV needs a pure "
+                             f"causal-attention stack")
         return self._zeros(num_pages + 1, block, device)
 
+    def _layer_cache(self, caches, i):
+        """Layer i's views of ``caches``, under its block's own names."""
+        kind, j = self.mixers[i], self.kind_row[i]
+        names = CACHE_LEAVES[kind]
+        prefix = "" if kind == "attn" else RECURRENT[kind].prefix
+        return {n[len(prefix):]: caches[n][j] for n in names}
+
     # The reference's capability gates (model.py:338-345, 400-418): each
-    # needs a pure causal-attention stack, which every model the port
-    # builds is.
+    # needs a pure causal-attention stack; a recurrent mixer's state has no
+    # block-granular form, absorbs padding and is not resumable.
     def _attention_only(self) -> bool:
         return (all(d.mixer == "attn" and not d.cross for d in self.descs)
                 and self.cfg.family not in ("encdec", "vlm"))
@@ -180,10 +251,9 @@ class Model:
         model.py:228-229)."""
         aux_sum = 0.0
         for i, lp in enumerate(params["layers"]):
-            kv = None if caches is None else {"k": caches["k"][i],
-                                              "v": caches["v"][i]}
-            args = (lp, x, kv, positions, write_index, decode_impl,
-                    page_table)
+            bc = None if caches is None else self._layer_cache(caches, i)
+            args = (lp, self.mixers[i], x, bc, positions, write_index,
+                    decode_impl, page_table)
             if remat:
                 x, aux = checkpoint(self._layer, *args, use_reentrant=False)
             else:
@@ -192,14 +262,23 @@ class Model:
                 aux_sum = aux_sum + aux
         return x, aux_sum
 
-    def _layer(self, lp, x, kv, positions, write_index, decode_impl,
+    def _layer(self, lp, mixer, x, bc, positions, write_index, decode_impl,
                page_table):
-        """One block -> (x, its ``moe_aux_loss`` or None)."""
+        """One block -> (x, its ``moe_aux_loss`` or None).  ``bc``, the
+        layer's cache views, is written in place (model.py:140-191)."""
         cfg = self.cfg
-        h, _ = L.attention(lp["attn"], x, cfg, positions=positions,
-                           kv_cache=kv, write_index=write_index,
-                           use_flash=self.use_flash, decode_impl=decode_impl,
-                           page_table=page_table)
+        if mixer == "attn":
+            h, _ = L.attention(lp["attn"], x, cfg, positions=positions,
+                               kv_cache=bc, write_index=write_index,
+                               use_flash=self.use_flash,
+                               decode_impl=decode_impl, page_table=page_table)
+        else:
+            is_step = x.shape[1] == 1 and bc is not None
+            h, state = RECURRENT[mixer].block(lp[mixer], x, cfg,
+                                              cache=bc if is_step else None)
+            if bc is not None:
+                for name, t in state.items():
+                    bc[name].copy_(t)
         x = x + h
         if "moe" in lp:
             h, aux = moe_lib.moe(lp["moe"], x, cfg)
@@ -268,7 +347,11 @@ class Model:
         valid K/V below ``start``, and the suffix ``tokens`` (B, S) is
         written from ``start`` on into a copy of it, so the donor stays
         valid for the prefix cache that holds it.  Returns (last_logits
-        (B,V), caches)."""
+        (B,V), caches).  Attention-only models, see
+        :attr:`supports_prefill_resume`."""
+        if not self.supports_prefill_resume:
+            raise ValueError(f"{self.cfg.name}: a resumed prompt pass needs "
+                             f"every mixer's state in the KV cache")
         caches = {n: t.clone() for n, t in caches.items()}
         x = self._embed(params, tokens)
         s = x.shape[1]

@@ -124,7 +124,10 @@ class PrefillEngine:
         return best, donor
 
     def _store(self, hashes: Sequence[int], caches) -> None:
-        if not hashes or self.cache_entries <= 0:
+        """Keep ``caches`` as the donor of the prompt ``hashes``; only a
+        model with resumable prompt passes keeps any (engine.py:353)."""
+        if not hashes or self.cache_entries <= 0 \
+                or not self.model.supports_prefill_resume:
             return
         key = tuple(hashes)
         self._cache[key] = caches
@@ -142,9 +145,11 @@ class PrefillEngine:
         return caches
 
     def _padded_len(self, n: int) -> int:
-        """Cold-bucket sequence length: the next block multiple (the port's
-        models all tolerate right-padding)."""
-        return -(-n // self.block_size) * self.block_size
+        """Cold-bucket sequence length: next block multiple when the model
+        tolerates right-padding, the exact length otherwise."""
+        if self.model.supports_padded_prefill:
+            return -(-n // self.block_size) * self.block_size
+        return n
 
     def _width(self, n: int) -> int:
         """Batch width for ``n`` group members: next power of two, capped
@@ -159,11 +164,12 @@ class PrefillEngine:
                batch_sizes: Sequence[int] = (1,)) -> None:
         """Run one of each prompt pass a run will issue, without touching
         the prefix cache or the stats: a cold pass per prompt length, a
-        batched pass per (width, padded length), and a resume per (width,
-        suffix length).  Where the reference compiles its jitted passes,
-        the port pays its one-time costs here (library handles, lazy
-        module loads, allocator growth), so measured TTFTs and the
-        saturation detector never see them."""
+        batched pass per (width, padded length), and, on a model with
+        resumable prompt passes, a resume per (width, suffix length).
+        Where the reference compiles its jitted passes, the port pays its
+        one-time costs here (library handles, lazy module loads, allocator
+        growth), so measured TTFTs and the saturation detector never see
+        them."""
         lengths = sorted(set(int(x) for x in prompt_lengths))
         caches = None
         for n in lengths:
@@ -174,7 +180,7 @@ class PrefillEngine:
                 self.model.prefill_batched(
                     self.params, self._tokens(np.zeros((w, n))),
                     self._tokens(np.ones((w,))), max_len=self.max_len)
-        if caches is not None:
+        if caches is not None and self.model.supports_prefill_resume:
             n_max = lengths[-1]
             suffixes = [x for x in sorted(set(int(x) for x in suffix_lengths))
                         if 0 < x < n_max]
@@ -199,7 +205,8 @@ class PrefillEngine:
             raise NotImplementedError(
                 "multimodal extras wait for the ROADMAP item "
                 "'encoder-decoder and VLM paths'")
-        resumable = self.cache_entries > 0
+        resumable = self.model.supports_prefill_resume and \
+            self.cache_entries > 0
         if hashes is None and resumable:
             hashes = block_hashes(tokens, self.block_size)
         hashes = tuple(hashes or ())
@@ -249,7 +256,8 @@ class PrefillEngine:
         n = len(requests)
         results: List[Optional[Tuple[np.ndarray, dict, int]]] = [None] * n
         st = self.stats
-        can_resume = self.cache_entries > 0
+        can_resume = self.model.supports_prefill_resume and \
+            self.cache_entries > 0
         cold: dict = {}     # padded_len -> [(idx, tokens, hashes)]
         resume: dict = {}   # (start, plen) -> [(idx, tokens, hashes, donor)]
         alias: List[Tuple[int, int]] = []   # (dup idx, primary idx)
@@ -398,6 +406,10 @@ class DecodeEngine:
         self.slots = [Slot() for _ in range(num_slots)]
         self.tokens = np.zeros((num_slots, 1), np.int32)
         if self.paged:
+            if not model.supports_paged_decode:
+                raise ValueError(
+                    f"{model.cfg.name} has non-attention mixers; paged KV "
+                    "needs a pure causal-attention stack")
             self.page_block = page_block
             self.max_pages_per_slot = -(-max_len // page_block)
             if num_pages is None:
@@ -644,9 +656,11 @@ class DecodeEngine:
 
 
 def kv_token_bytes(model: Model) -> int:
-    """KV bytes per cached token position (all layers, K and V, bf16)."""
+    """KV bytes per cached token position (the attention layers, K and V,
+    bf16); a recurrent mixer's state does not grow with the length."""
     cfg = model.cfg
-    return 2 * model.n_layers * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    n_attn = model.mixers.count("attn")
+    return 2 * n_attn * cfg.num_kv_heads * cfg.resolved_head_dim * 2
 
 
 def adopt_prefill_pages(pool, bundle, src_row: int, page_ids, *, block: int):
@@ -673,9 +687,14 @@ def adopt_prefill_pages(pool, bundle, src_row: int, page_ids, *, block: int):
 
 def _insert_cache(dst, src, slot: int, src_row: int = 0):
     """Write row ``src_row`` of a prefill cache bundle into decode slot
-    ``slot`` in place; a shorter prefill sequence axis is zero-padded on
-    the right."""
+    ``slot`` in place, leaf by leaf (every leaf has the layer at axis 0 and
+    the batch at axis 1).  A K/V leaf whose prefill sequence axis is
+    shorter is zero-padded on the right; a state leaf is copied whole, its
+    ``-inf`` stabilisers included."""
     for name, d in dst.items():
-        s = src[name][:, src_row]                      # (P, S, K, hd)
+        s = src[name][:, src_row]                      # (P, ...)
+        if s.shape[1:] == d.shape[2:]:
+            d[:, slot] = s.to(d.dtype)
+            continue
         d[:, slot, :s.shape[1]] = s.to(d.dtype)
         d[:, slot, s.shape[1]:] = 0

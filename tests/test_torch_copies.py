@@ -31,6 +31,7 @@ COPIES = [
     "configs/qwen3_moe_30b_a3b.py", "configs/arctic_480b.py",
     "configs/minitron_4b.py", "configs/nemotron_4_340b.py",
     "configs/llama31_70b.py",
+    "configs/jamba_v0_1_52b.py", "configs/xlstm_125m.py",
 ]
 
 
@@ -48,7 +49,7 @@ def _tree(path):
 
 
 def test_copy_list():
-    assert len(COPIES) == len(set(COPIES)) == 27
+    assert len(COPIES) == len(set(COPIES)) == 29
 
 
 @pytest.mark.parametrize("rel", COPIES)

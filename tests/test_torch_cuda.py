@@ -43,7 +43,7 @@ def _t(rng, shape, dtype, dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g,hd", [(1, 64), (3, 128), (4, 32), (8, 128),
-                                  (8, 64)])
+                                  (8, 64), (4, 128)])
 def test_decode_kernel_matches_plain(dev, g, hd, dtype):
     rng = np.random.default_rng(g * hd)
     b, t, kh = 4, 700, 2
@@ -263,3 +263,30 @@ def test_model_walk_kernel_vs_plain(dev, impls):
         spread = (lp.max(-1).values - lp.min(-1).values)
         assert torch.all((lk - lp).abs().max(-1).values < 0.02 * spread)
         tok = lp.argmax(-1)
+
+
+@pytest.mark.parametrize("name,kind", [("jamba-v0.1-52b", "mamba"),
+                                       ("xlstm-125m", "mlstm"),
+                                       ("xlstm-125m", "slstm")])
+def test_recurrent_block_on_card_matches_cpu(dev, name, kind, monkeypatch):
+    """A recurrent block (no kernel: einsum and loop code) on the card
+    against the same block on the CPU in fp32, prompt pass and cached
+    step: the CUDA ops (cummax, logaddexp, the batched products) agree."""
+    from repro_torch.models import ssm
+    monkeypatch.setattr(ssm, "COMPUTE_DTYPE", torch.float32)
+    cfg = get_reduced(name)
+    params = getattr(ssm, f"{kind}_init")(torch.Generator().manual_seed(0),
+                                          cfg, torch.float32, "cpu")
+    block = getattr(ssm, f"{kind}_block")
+    x = torch.randn((2, 41, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    on_card = {k: v.to(dev) for k, v in params.items()
+               if isinstance(v, torch.Tensor)}
+    on_card.update({k: {"scale": v["scale"].to(dev)} for k, v in
+                    params.items() if isinstance(v, dict)})
+    y_cpu, c_cpu = block(params, x[:, :40], cfg)
+    y_dev, c_dev = block(on_card, x[:, :40].to(dev), cfg)
+    torch.testing.assert_close(y_dev.cpu(), y_cpu, atol=1e-4, rtol=1e-4)
+    s_cpu, _ = block(params, x[:, 40:], cfg, cache=c_cpu)
+    s_dev, _ = block(on_card, x[:, 40:].to(dev), cfg, cache=c_dev)
+    torch.testing.assert_close(s_dev.cpu(), s_cpu, atol=1e-4, rtol=1e-4)

@@ -173,10 +173,44 @@ def test_model_builds_the_moe_family(name):
 
 
 @pytest.mark.parametrize("family,item", [
-    ("hybrid", "SSM"), ("ssm", "SSM"), ("encdec", "encoder-decoder"),
-    ("vlm", "encoder-decoder")])
+    ("encdec", "encoder-decoder"), ("vlm", "encoder-decoder")])
 def test_model_still_refuses_the_other_families(family, item):
     import dataclasses
     cfg = dataclasses.replace(get_reduced("qwen3-moe-30b-a3b"), family=family)
     with pytest.raises(NotImplementedError, match=item):
         Model(cfg)
+
+
+def test_ssm_module_imports_only_torch():
+    path = ROOT / "src" / "repro_torch" / "models" / "ssm.py"
+    names = {n.split(".")[0] for n in _imported(ast.parse(path.read_text()))}
+    assert names & set(FORBIDDEN) == set()
+    assert names <= {"__future__", "math", "torch", "repro_torch"}
+
+
+@pytest.mark.parametrize("name,mixers", [
+    ("jamba-v0.1-52b", {"attn", "mamba"}), ("xlstm-125m", {"mlstm", "slstm"})])
+def test_model_builds_the_recurrent_families(name, mixers):
+    model = Model(get_reduced(name))
+    assert set(model.mixers) == mixers
+    params = model.init(torch.Generator().manual_seed(0), torch.bfloat16,
+                        device="cpu")
+    for layer, mixer in zip(params["layers"], model.mixers):
+        assert set(layer) & {"attn", "mamba", "mlstm", "slstm"} == {mixer}
+    assert not (model.supports_paged_decode or model.supports_padded_prefill
+                or model.supports_prefill_resume)
+
+
+@pytest.mark.parametrize("name,counts,kv_bytes", [
+    ("jamba-v0.1-52b", {"mamba": 28, "attn": 4}, 2 * 4 * 8 * 128 * 2),
+    ("xlstm-125m", {"mlstm": 9, "slstm": 3}, 0)])
+def test_full_size_recurrent_models_build(name, counts, kv_bytes):
+    """The published configs build (layout, caches on the meta device, KV
+    bytes a token over the attention layers only)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import kv_token_bytes
+    model = Model(get_config(name))
+    assert {m: model.mixers.count(m) for m in set(model.mixers)} == counts
+    caches = model.cache_init(2, 64, "meta")
+    assert all(t.shape[1] == 2 for t in caches.values())
+    assert kv_token_bytes(model) == kv_bytes

@@ -169,12 +169,11 @@ def test_forced_decode_walk(models, impl):
 
 
 def test_unsupported_families_raise():
-    """The port builds the dense and MoE families (tests/test_torch_moe_model
-    .py) and refuses the rest."""
+    """The port builds the dense, MoE, hybrid and SSM families
+    (tests/test_torch_moe_model.py, tests/test_torch_hybrid_model.py) and
+    refuses the rest."""
     import dataclasses
     cfg = get_reduced("phi4-mini-3.8b")
     assert Model(get_reduced("qwen3-moe-30b-a3b")).cfg.moe is not None
-    with pytest.raises(NotImplementedError, match="SSM"):
-        Model(dataclasses.replace(cfg, family="hybrid"))
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         Model(dataclasses.replace(cfg, family="encdec"))
