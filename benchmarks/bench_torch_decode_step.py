@@ -3,19 +3,22 @@
 Builds a full-width model (``--arch``, Phi-4-mini 3.8B by default; random
 bf16 weights from a seed, drawn on the card), admits 4 requests into one
 ``DecodeEngine`` with 4 slots (prompts of 577-1041 tokens, prefilled by the
-port's ``PrefillEngine``; the slice's decoder shape in ``chip_smoke.py``),
-and then:
+port's ``PrefillEngine``; the slice's decoder shape in ``chip_smoke.py``;
+a VLM's requests each carry 576 x 1024 patches, an encoder-decoder's are
+decoder prompts of 16-64 tokens with 1,024-2,048 x 160 frames, drawn from
+numpy seeds), and then:
 
 * times 8 decode ticks on the host clock (each tick ends in the argmax's
   copy to the host, so the device has finished);
 * traces the same number of ticks with ``torch.profiler`` and prints the
   device-busy time per tick (the sum of kernel times), the idle share, the
   kernel launches per tick, the device time of each layer kind (attention,
-  MLP, MoE, the Mamba, mLSTM and sLSTM blocks; summed over the
-  profiler's ``record_function`` range around each) and the kernels that
-  take the most device time;
-* times one warm prompt pass of the longest prompt on the host clock and
-  traces it the same way.
+  MLP, MoE, the Mamba, mLSTM and sLSTM blocks, the cached cross attention
+  ``xattn`` and the whole ``encoder``, whose range holds its own attention
+  and MLP ranges; summed over the profiler's ``record_function`` range
+  around each) and the kernels that take the most device time;
+* times one warm prompt pass of the longest prompt (with its frontend
+  inputs) on the host clock and traces it the same way.
 
     PYTHONPATH=src python benchmarks/bench_torch_decode_step.py \
         [--impl pallas|sdpa|paged|paged_sdpa] [--arch qwen3-moe-30b-a3b] \
@@ -24,8 +27,10 @@ and then:
 Any architecture of the port's registry that fits one card serves here
 (``qwen3-moe-30b-a3b`` holds ~56 GiB of bf16 params); ``--layers`` cuts
 the depth to N layers at full width, a multiple of the layer period
-(``--arch jamba-v0.1-52b --layers 16``: ~48 GiB; ``--arch xlstm-125m``
-runs whole).  Models with recurrent mixers take ``pallas`` or ``sdpa``.
+(``--arch jamba-v0.1-52b --layers 16``: ~48 GiB; ``--arch xlstm-125m``,
+``--arch phi-3-vision-4.2b`` and ``--arch seamless-m4t-medium`` run
+whole).  Models with recurrent mixers, encoders or frontends take
+``pallas`` or ``sdpa``.
 
 Needs a CUDA device; without one it exits non-zero.
 """
@@ -38,9 +43,29 @@ import time
 
 STEPS = 8
 LENGTHS = (1041, 913, 760, 577)    # one prompt per slot
+ENCDEC_LENGTHS = (64, 48, 32, 16)  # decoder prompts (DEC_PREFIX is 64)
+ENCDEC_FRAMES = (2048, 1792, 1536, 1024)
 
 
-KINDS = ("attn", "mlp", "moe", "mamba", "mlstm", "slstm")
+KINDS = ("attn", "mlp", "moe", "mamba", "mlstm", "slstm", "xattn", "encoder")
+
+
+def requests(cfg):
+    """(prompt lengths, each request's frontend inputs or None, max_len)
+    of ``cfg``'s model: a VLM's patches, an encoder-decoder's frames."""
+    import numpy as np
+
+    def draw(slot, n):
+        return np.random.default_rng([18, slot]).standard_normal(
+            (n, cfg.frontend_dim), dtype=np.float32)
+    if cfg.family == "encdec":
+        return (ENCDEC_LENGTHS, [{"frames": draw(i, n)} for i, n in
+                                 enumerate(ENCDEC_FRAMES)], 128)
+    if cfg.family == "vlm":
+        # 576 patches + 1041 tokens + 33, in 128-key splits
+        return (LENGTHS, [{"patches": draw(i, cfg.num_patches)}
+                          for i in range(len(LENGTHS))], 1664)
+    return LENGTHS, [None] * len(LENGTHS), 1088
 
 
 def _range_layer_kinds(torch):
@@ -60,6 +85,8 @@ def _range_layer_kinds(torch):
     moe_lib.moe = ranged("moe", moe_lib.moe)
     L.attention = ranged("attn", L.attention)
     L.mlp = ranged("mlp", L.mlp)
+    M.Model._cross_cached = ranged("xattn", M.Model._cross_cached)
+    M.Model._run_encoder = ranged("encoder", M.Model._run_encoder)
 
 
 def _profiled(torch, fn):
@@ -125,14 +152,14 @@ def main() -> int:
     model = Model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         torch.bfloat16, device="cuda")
-    max_len = 1088
+    lengths, extras, max_len = requests(cfg)
     pre = PrefillEngine(model, params, max_len, cache_entries=0,
                         device="cuda")
-    dec = DecodeEngine(model, params, num_slots=len(LENGTHS),
+    dec = DecodeEngine(model, params, num_slots=len(lengths),
                        max_len=max_len, decode_impl=args.impl, device="cuda")
-    for slot, n in enumerate(LENGTHS):
+    for slot, n in enumerate(lengths):
         toks = [(slot * 1_000_003 + 7 * i) % cfg.vocab_size for i in range(n)]
-        logits, caches = pre.prefill(toks)
+        logits, caches = pre.prefill(toks, extras[slot])
         dec.admit(slot, f"r{slot}", caches, int(logits.argmax()),
                   prompt_len=n, max_new=10 * STEPS)
     for _ in range(3):                       # warm the allocator and handles
@@ -148,19 +175,21 @@ def main() -> int:
     _range_layer_kinds(torch)
     gpu = torch.cuda.get_device_name(0)
     print(f"{gpu}; {cfg.name} full width, {cfg.num_layers} layers, "
-          f"decode_impl={args.impl}, {len(LENGTHS)} slots, {STEPS} ticks")
+          f"decode_impl={args.impl}, {len(lengths)} slots, {STEPS} ticks")
     _summarise(torch, "decode tick", STEPS, step_ms,
                _profiled(torch, lambda: [dec.step() for _ in range(STEPS)]))
 
     # one prompt pass of the longest prompt, warm, on the host clock (its
     # logits' copy to the host ends it) and then traced the same way
-    toks = [(7 * i) % cfg.vocab_size for i in range(LENGTHS[0])]
-    pre.prefill(toks)
+    toks = [(7 * i) % cfg.vocab_size for i in range(lengths[0])]
+    pre.prefill(toks, extras[0])
     t0 = time.perf_counter()
-    pre.prefill(toks)
+    pre.prefill(toks, extras[0])
     pass_ms = (time.perf_counter() - t0) * 1e3
-    _summarise(torch, f"prompt pass of {LENGTHS[0]} tokens", 1, pass_ms,
-               _profiled(torch, lambda: pre.prefill(toks)))
+    inputs = ", ".join(f"{k} {v.shape}" for k, v in (extras[0] or {}).items())
+    _summarise(torch, f"prompt pass of {lengths[0]} tokens"
+               + (f" with {inputs}" if inputs else ""), 1, pass_ms,
+               _profiled(torch, lambda: pre.prefill(toks, extras[0])))
     return 0
 
 

@@ -7,9 +7,10 @@ Run from the root of a checkout; it needs one CUDA device and ``nvcc``.
 Phases, each of which fails the run (exit code 1) if it fails:
 
 1. Build every CUDA kernel of the port from ``src/repro_torch/csrc``.
-2. Hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it (fp32 and bf16), and time the kernel, the
-   plain version and a PyTorch library call with CUDA events.  Both
+2. Hold each kernel against its plain PyTorch version on the card, at
+   every (G, hd, dtype) it is built for and at the shapes the main path
+   gives it (fp32 and bf16), and time the kernel, the plain version and a
+   PyTorch library call with CUDA events.  Both
    decode kernels' sweeps include lengths at their split boundaries, an
    empty slot beside full windows, and two calls in a row that must agree
    bit for bit.
@@ -55,6 +56,18 @@ Phases, each of which fails the run (exit code 1) if it fails:
    per attention layer and decode step: 2 on Jamba, none on xLSTM), with
    no prefix resumed, no prompt right-padded and a paged decoder refused,
    then walked as in phase 4 (``"pallas"`` against ``"sdpa"``).
+11. The encoder-decoder and VLM slice, last, after phase 10's params are
+   freed: K1 and K2 held and timed at Phi-3-vision's attention shape (G =
+   1, hd = 96, K = 32, T = 1664), K1 at SeamlessM4T-medium's (G = 1, hd =
+   64, K = 16) and K3 at the VLM loss's (B = 1, S = 2048, H = K = 32, hd =
+   96); then ``phi-3-vision-4.2b`` (32 layers, ~3.8 B params) and
+   ``seamless-m4t-medium`` (12 encoder and 12 decoder layers, ~0.9 B) at
+   full size, each serving 12 requests with ``extras`` (576 x 1024 patches,
+   or 1024-2048 x 160 frames) on the dense decode kernel (K1 launched once
+   per self-attention layer and decode step; every prompt its own pass, no
+   prefix resumed or stored; the cached cross attention plain) and walked
+   as in phase 4 from a prefill with those inputs; and the VLM's loss at
+   S = 2048 (576 patches) with K3 (32 launches) and without.
 
 It prints one JSON line of kernel records, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -202,7 +215,7 @@ def phase_kernels(torch, F):
     # every (G, hd, dtype) the kernels are built for, at a small size
     for dtype in (torch.float32, torch.bfloat16):
         for g in range(1, 9):
-            for d in (32, 64, 128):
+            for d in dops.HEAD_DIMS:
                 args = decode_inputs(torch, gen, 3, 300, 2 * g, 2, d, dtype,
                                      [0, 257, 300])
                 max_err(torch, dops.decode_attention(*args),
@@ -211,25 +224,30 @@ def phase_kernels(torch, F):
     # splits
     for dtype in (torch.float32, torch.bfloat16):
         for g in range(1, 9):
-            for d in (32, 64, 128):
+            for d in dops.HEAD_DIMS:
                 args = paged_inputs(torch, gen, 3, 41, 20, 2 * g, 2, d, dtype,
                                     [0, 257, 320])
                 max_err(torch, pops.paged_attention(*args),
                         pops.paged_attention_plain(*args), dtype)
     torch.cuda.synchronize()
+    print(f"K1, K2: every (G 1..8, hd {dops.HEAD_DIMS}, fp32/bf16) agrees "
+          f"at a small size")
     return hold_decode_kernels(torch, F, gen, 24, 8, 128)  # Phi-4-mini
 
 
-def hold_decode_kernels(torch, F, gen, h, kh, hd, suffix="", paged=True):
-    """K1 and K2 at a main path's shape (B = SLOTS, T = MAX_LEN, W = 68
-    pages of 16; ``h`` query heads over ``kh`` KV heads of ``hd``): edge
-    lengths held against the plain versions in fp32 and bf16, each case
-    called twice and bit-identical, then bf16 timed beside the plain
-    version and SDPA.  Returns the kernel records, named with ``suffix``:
-    K1's, and K2's unless ``paged`` is False (a path without paged KV)."""
+def hold_decode_kernels(torch, F, gen, h, kh, hd, suffix="", paged=True,
+                        max_len=MAX_LEN, lens=(1041, 913, 760, 577)):
+    """K1 and K2 at a main path's shape (B = SLOTS, T = ``max_len``, W =
+    T / 16 pages of 16; ``h`` query heads over ``kh`` KV heads of ``hd``):
+    edge lengths held against the plain versions in fp32 and bf16, each
+    case called twice and bit-identical, then bf16 timed at the slot
+    lengths ``lens`` beside the plain version and SDPA.  Returns the kernel
+    records, named with ``suffix``: K1's, and K2's unless ``paged`` is
+    False (a path without paged KV)."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.paged_attention import ops as pops
 
+    t, pages = max_len, max_len // 16
     g = h // kh
     shape = f"G={g} hd={hd}"
     errs = {}
@@ -237,44 +255,47 @@ def hold_decode_kernels(torch, F, gen, h, kh, hd, suffix="", paged=True):
     # then lengths at the split boundaries, an empty slot beside full
     # windows and a length past T (clamped); each case called twice on the
     # same combine counters, the two outputs bit-identical
-    chunk = dops.split_plan(SLOTS, MAX_LEN, kh, g, hd).chunk
-    k1_edges = ([chunk - 1, chunk, chunk + 1, MAX_LEN],
-                [0, MAX_LEN, MAX_LEN + 9, 2 * chunk + 1])
+    chunk = dops.split_plan(SLOTS, t, kh, g, hd).chunk
+    k1_edges = ([chunk - 1, chunk, chunk + 1, t],
+                [0, t, t + 9, 2 * chunk + 1])
     for dtype in (torch.float32, torch.bfloat16):
         worst = 0.0
-        for lens in ([0, 1, 257, MAX_LEN], *k1_edges):
-            args = decode_inputs(torch, gen, SLOTS, MAX_LEN, h, kh, hd, dtype,
-                                 lens)
+        for case in ([0, 1, 257, t], *k1_edges):
+            args = decode_inputs(torch, gen, SLOTS, t, h, kh, hd, dtype,
+                                 case)
             first = dops.decode_attention(*args)
             again = dops.decode_attention(*args)
-            check(torch.equal(first, again), f"K1 lengths {lens}: two calls "
+            check(torch.equal(first, again), f"K1 lengths {case}: two calls "
                   f"in a row differ")
             worst = max(worst, max_err(torch, first,
                                        dops.decode_attention_plain(*args),
                                        dtype))
-        print(f"K1 decode_attention B={SLOTS} T={MAX_LEN} {shape} "
+        print(f"K1 decode_attention B={SLOTS} T={t} {shape} "
               f"{dtype}: max err {worst:.3g} (splits of {chunk} keys; edge "
               f"lengths {k1_edges}; each case called twice, bit-identical)")
         if dtype == torch.bfloat16:
             errs["decode_attention"] = worst
-    # K2 over the engine's page-table ladder; N = 4*68 + 1 pages with the
-    # trash page 0, shared pages, out-of-range entries (clamped) and
-    # lengths past the window (clamped); then, at W = 68, lengths at the
-    # split boundaries, an empty slot beside full windows, and two calls in
-    # a row on the same combine counters (a counter left unreset, or a
-    # combine that depends on which block finishes last, shows there)
-    n = SLOTS * 68 + 1
-    split = pops.split_plan(SLOTS, 68, 16, kh, g, hd).chunk
-    edges = ([split - 1, split, split + 1, 68 * 16],
-             [0, 68 * 16, 68 * 16 + 9, 2 * split + 1])
+    # K2 over the engine's page-table ladder; N = 4 * pages + 1 pages with
+    # the trash page 0, shared pages, out-of-range entries (clamped) and
+    # lengths past the window (clamped); then, at the full width W = pages,
+    # lengths at the split boundaries, an empty slot beside full windows,
+    # and two calls in a row on the same combine counters (a counter left
+    # unreset, or a combine that depends on which block finishes last,
+    # shows there)
+    n = SLOTS * pages + 1
+    split = pops.split_plan(SLOTS, pages, 16, kh, g, hd).chunk
+    edges = ([split - 1, split, split + 1, pages * 16],
+             [0, pages * 16, pages * 16 + 9, 2 * split + 1])
     for dtype in (torch.float32, torch.bfloat16) if paged else ():
         worst = 0.0
+        ladder = sorted({min(1 << i, pages)
+                         for i in range(pages.bit_length() + 1)})
         cases = [(w, [0, 1, max(1, 16 * w - 5), 16 * w + 7])
-                 for w in (1, 2, 4, 8, 16, 32, 64, 68)]
-        cases += [(68, lens) for lens in edges]
-        for w, lens in cases:
+                 for w in ladder]
+        cases += [(pages, case) for case in edges]
+        for w, case in cases:
             q, kp, vp, table, lengths = paged_inputs(
-                torch, gen, SLOTS, n, w, h, kh, hd, dtype, lens)
+                torch, gen, SLOTS, n, w, h, kh, hd, dtype, case)
             table[0, 0] = 0
             table[1, :] = table[2, :]
             table[3, -1] = n + 5
@@ -282,10 +303,10 @@ def hold_decode_kernels(torch, F, gen, h, kh, hd, suffix="", paged=True):
             want = pops.paged_attention_plain(q, kp, vp, table, lengths)
             first = pops.paged_attention(q, kp, vp, table, lengths)
             again = pops.paged_attention(q, kp, vp, table, lengths)
-            check(torch.equal(first, again), f"K2 W={w} lengths {lens}: two "
+            check(torch.equal(first, again), f"K2 W={w} lengths {case}: two "
                   f"calls in a row differ")
             worst = max(worst, max_err(torch, first, want, dtype))
-        print(f"K2 paged_attention N={n} W=1..68 {shape} {dtype}: "
+        print(f"K2 paged_attention N={n} W=1..{pages} {shape} {dtype}: "
               f"max err {worst:.3g} (splits of {split} keys; edge lengths "
               f"{edges}; each case called twice, bit-identical)")
         if dtype == torch.bfloat16:
@@ -293,8 +314,8 @@ def hold_decode_kernels(torch, F, gen, h, kh, hd, suffix="", paged=True):
     torch.cuda.synchronize()
 
     # timing at the main path's shapes: bf16, slot lengths of a decode
-    # step in phase 3 (prompts of 512-1024 tokens plus up to 32 generated)
-    lens = [1041, 913, 760, 577]
+    # step (phase 3: prompts of 512-1024 tokens plus up to 32 generated)
+    lens = list(lens)
     dt = torch.bfloat16
     item = 2
     kv_bytes = sum(lens) * kh * hd * 2 * item      # K and V below length
@@ -313,11 +334,11 @@ def hold_decode_kernels(torch, F, gen, h, kh, hd, suffix="", paged=True):
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             library_ms=time_ms(torch, sdpa, lib_sets))
 
-    sets = [decode_inputs(torch, gen, SLOTS, MAX_LEN, h, kh, hd, dt, lens)
+    sets = [decode_inputs(torch, gen, SLOTS, t, h, kh, hd, dt, lens)
             for _ in range(8)]
     mask_sets = []
     for q, k, v, lengths in sets:
-        mask = (torch.arange(MAX_LEN, device="cuda")[None, None, None, :]
+        mask = (torch.arange(t, device="cuda")[None, None, None, :]
                 < lengths[:, None, None, None])
         mask_sets.append((q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
                           mask))
@@ -329,15 +350,15 @@ def hold_decode_kernels(torch, F, gen, h, kh, hd, suffix="", paged=True):
     del sets, mask_sets
     if not paged:
         torch.cuda.empty_cache()
-        return report(records, lens, h, kh, hd)
+        return report(records, lens, h, kh, hd, t)
 
     psets = []
     for _ in range(8):
-        q, kp, vp, _, lengths = paged_inputs(torch, gen, SLOTS, n, 68, h, kh,
-                                             hd, dt, lens)
+        q, kp, vp, _, lengths = paged_inputs(torch, gen, SLOTS, n, pages, h,
+                                             kh, hd, dt, lens)
         # each slot owns its pages, as the allocator hands them out
         table = (1 + torch.randperm(n - 1, generator=gen, device="cuda")
-                 [:SLOTS * 68]).to(torch.int32).reshape(SLOTS, 68)
+                 [:SLOTS * pages]).to(torch.int32).reshape(SLOTS, pages)
         psets.append((q, kp, vp, table.contiguous(), lengths))
     gsets = []
     for q, kp, vp, table, lengths in psets:
@@ -351,18 +372,18 @@ def hold_decode_kernels(torch, F, gen, h, kh, hd, suffix="", paged=True):
     # itself is left out of its time
     records.append(record(
         "paged_attention", pops.paged_attention, pops.paged_attention_plain,
-        psets, gsets, kv_bytes + io_bytes + SLOTS * 68 * 4))
+        psets, gsets, kv_bytes + io_bytes + SLOTS * pages * 4))
     del psets, gsets
     torch.cuda.empty_cache()
-    return report(records, lens, h, kh, hd)
+    return report(records, lens, h, kh, hd, t)
 
 
-def report(records, lens, h, kh, hd):
+def report(records, lens, h, kh, hd, t):
     for r in records:
         print(f"{r['name']}: kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f}"
               f" ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
-              f"library {r['library_ms']:.4f} ms (bf16, B={SLOTS}, H={h}, "
-              f"K={kh}, hd={hd}, lengths {lens})")
+              f"library {r['library_ms']:.4f} ms (bf16, B={SLOTS}, T={t}, "
+              f"H={h}, K={kh}, hd={hd}, lengths {lens})")
     return records
 
 
@@ -417,7 +438,16 @@ def phase_flash(torch, F):
     print(f"K3 flash_attention: {n} sweep cases agree (G 1..8, hd "
           f"{fops.HEAD_DIMS}, causal and not, T - S in (0, 37); S*G off "
           f"the 128-row blocks for G 3/5/6/7; S = 1 with T - S = 37)")
-    b, s, h, kh, hd = LOSS_B, LOSS_S, 24, 8, 128     # the loss's shape
+    return time_flash(torch, F, gen, LOSS_B, LOSS_S, 24, 8, 128)
+
+
+def time_flash(torch, F, gen, b, s, h, kh, hd, suffix=""):
+    """K3 at a loss's shape (B = ``b``, S = T = ``s``, ``h`` query heads over
+    ``kh`` KV heads of ``hd``, causal): held against its plain version in
+    fp32 and bf16, then bf16 timed beside the plain version and SDPA.
+    Returns the kernel record, named with ``suffix``."""
+    from repro_torch.kernels.flash_attention import ops as fops
+
     err = {}
     for dtype in (torch.float32, torch.bfloat16):
         args = flash_inputs(torch, gen, b, s, s, h, kh, hd, dtype)
@@ -429,8 +459,10 @@ def phase_flash(torch, F):
     torch.cuda.synchronize()
 
     dt = torch.bfloat16
+    # sets of q, k and v together beyond the 50 MB L2
+    per_set = (2 * b * s * h * hd + 2 * b * s * kh * hd) * 2
     sets = [flash_inputs(torch, gen, b, s, s, h, kh, hd, dt)
-            for _ in range(4)]          # 4 x 42 MB, beyond the 50 MB L2
+            for _ in range(max(4, -(-150_000_000 // per_set)))]
     lib_sets = [tuple(x.transpose(1, 2) for x in st) for st in sets]
     sdpa = lambda q, k, v: F.scaled_dot_product_attention(  # noqa: E731
         q, k, v, is_causal=True, enable_gqa=True)
@@ -439,7 +471,7 @@ def phase_flash(torch, F):
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = 4 * b * h * hd * pairs / BF16_FLOPS_PER_S * 1e3
     rec = dict(
-        name="flash_attention", route="cuda",
+        name="flash_attention" + suffix, route="cuda",
         source=SOURCES["flash_attention"],
         replaces=REPLACES["flash_attention"],
         max_abs_err=err[dt],
@@ -448,7 +480,7 @@ def phase_flash(torch, F):
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         library_ms=time_ms(torch, sdpa, lib_sets))
-    print(f"flash_attention: kernel {rec['ms']:.4f} ms, bound "
+    print(f"{rec['name']}: kernel {rec['ms']:.4f} ms, bound "
           f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; bytes "
           f"{bytes_ms:.4f} ms), plain {rec['plain_ms']:.4f} ms, library "
           f"{rec['library_ms']:.4f} ms (bf16, B={b}, S=T={s}, H={h}, K={kh},"
@@ -460,11 +492,11 @@ def phase_flash(torch, F):
 
 # ------------------------------------------------------------- phase 6 ---
 
-def phase_loss(torch, model, params, cfg, counters):
-    from repro_torch.training.data import DataConfig, make_batch
-
-    batch = make_batch(DataConfig(cfg.vocab_size, LOSS_S, LOSS_B, seed=0), 0,
-                       device="cuda")
+def phase_loss(torch, model, params, cfg, counters, batch):
+    """``model.train_loss`` on ``batch`` with and without the flash kernel:
+    K3 launched once per layer with it, no kernel without it, the losses
+    within LOSS_BOUND.  Returns the kernels' launches."""
+    shape = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
     losses, launches_of = {}, {}
     for flash in (True, False):
         model.use_flash = flash
@@ -492,10 +524,9 @@ def phase_loss(torch, model, params, cfg, counters):
               f"expected {want}")
         losses[flash] = value
         launches_of.update({k: v for k, v in launches.items() if v})
-        print(f"loss use_flash={flash}: {value:.6f} (B={LOSS_B}, "
-              f"S={LOSS_S}, {cfg.num_layers} layers), {wall * 1e3:.1f} ms "
-              f"per "
-              f"call, launches {launches}")
+        print(f"loss {cfg.name} use_flash={flash}: {value:.6f} ({shape}, "
+              f"{cfg.num_layers} layers), {wall * 1e3:.1f} ms per call, "
+              f"launches {launches}")
     gap = abs(losses[True] - losses[False])
     check(gap < LOSS_BOUND, f"flash and plain losses differ by {gap:.4g} "
           f">= {LOSS_BOUND}")
@@ -561,11 +592,16 @@ def template_prompt(template: int, n: int, vocab: int):
     return [(template * 1_000_003 + 7 * i) % vocab for i in range(n)]
 
 
-def serve(torch, model, params, cfg, decode_impl, requests, counters):
+def serve(torch, model, params, cfg, decode_impl, requests, counters,
+          max_len=MAX_LEN):
+    """``requests`` — (id, tokens, max new tokens[, extras]) — through a
+    cluster of 2 decoders x SLOTS slots, every kernel count set to 0 just
+    before the run; returns (cluster, done, wall seconds, decode steps
+    that ran the model, each kernel's launches)."""
     from repro_torch.serving.disagg import DisaggregatedCluster, ServeRequest
 
     cluster = DisaggregatedCluster(
-        model, params, num_decode=2, slots_per_worker=SLOTS, max_len=MAX_LEN,
+        model, params, num_decode=2, slots_per_worker=SLOTS, max_len=max_len,
         adaptive=False, cache_ttl=None, decode_impl=decode_impl,
         device="cuda")
     steps = [0]
@@ -577,8 +613,9 @@ def serve(torch, model, params, cfg, decode_impl, requests, counters):
             steps[0] += bool(out)       # a tick that ran the model
             return out
         dec.step = counted
-    for rid, toks, max_new in requests:
-        cluster.submit(ServeRequest(rid, toks, max_new_tokens=max_new))
+    for rid, toks, max_new, *extras in requests:
+        cluster.submit(ServeRequest(rid, toks, max_new_tokens=max_new,
+                                    extras=extras[0] if extras else None))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters:
@@ -791,11 +828,25 @@ def phase_scenarios(torch, model, params, counters):
 
 # ------------------------------------------------------------- phase 4 ---
 
-def phase_walk(torch, model, params, cfg, paged=True):
+def phase_walk(torch, model, params, cfg, paged=True, n_prompt=624,
+               extras=None, offset=0, max_len=MAX_LEN, plain="sdpa",
+               watch=()):
     """16 forced decode steps on the kernel path and on the plain path
-    (each fed the plain path's argmax), from two copies of one prefill:
-    ``"pallas"`` against ``"sdpa"``, and unless ``paged`` is False (a model
-    without paged KV) ``"paged"`` against ``"paged_sdpa"``.
+    (each fed the plain path's argmax), from two copies of one prefill of
+    ``n_prompt`` tokens (with ``extras``, the request's frontend inputs):
+    ``"pallas"`` against ``plain``, and unless ``paged`` is False (a model
+    without paged KV) ``"paged"`` against ``"paged_sdpa"``.  Decode step i
+    runs at position ``offset + n_prompt + i``: a VLM's prefill holds its
+    ``offset`` patch positions before the tokens.  Returns the worst
+    max|dlogits| / spread.
+
+    ``plain`` is ``"sdpa"`` (the masked softmax with bf16 probabilities,
+    as the reference's ``_sdpa``) or ``"k1_plain"``: the ``"pallas"`` path
+    with K1's plain version, ``decode_attention_plain``, in the kernel's
+    place (the kernel's own arithmetic: fp32 softmax and products).
+    ``watch`` names more paths, from ``"sdpa"`` and ``"k1_plain"``, that
+    take the same tokens on copies of their own; their distances to the
+    two compared paths are printed, not bounded (models without MoE).
 
     In an MoE model the two paths' bf16 hidden states differ in the last
     bit, so where a router's k-th and (k+1)-th logits nearly tie the paths
@@ -806,19 +857,36 @@ def phase_walk(torch, model, params, cfg, paged=True):
     logits drift from the plain path's, and how many of its own choices
     differ (its near-tie flips), are printed: the router itself is held
     against the reference on the CPU (tests/test_torch_moe*.py)."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.models import layers as L
     from repro_torch.models import moe as moe_lib
     from repro_torch.serving.engine import DecodeEngine, PrefillEngine
 
-    toks = template_prompt(0, 624, cfg.vocab_size)
-    pre = PrefillEngine(model, params, MAX_LEN, cache_entries=0,
+    check(not (watch and cfg.moe), "watched paths need a model without MoE")
+
+    def decode(impl, caches, arr, cur, table):
+        if impl != "k1_plain":
+            return model.decode(params, caches, arr, cur, decode_impl=impl,
+                                page_table=table)[0]
+        inner = L.decode_attention
+        L.decode_attention = dops.decode_attention_plain
+        try:
+            return model.decode(params, caches, arr, cur,
+                                decode_impl="pallas")[0]
+        finally:
+            L.decode_attention = inner
+
+    toks = template_prompt(0, n_prompt, cfg.vocab_size)
+    pre = PrefillEngine(model, params, max_len, cache_entries=0,
                         device="cuda")
-    logits, caches = pre.prefill(toks)
+    logits, caches = pre.prefill(toks, extras)
     first = int(logits.argmax())
     # dense: kernel vs plain on two copies of the same cache
-    pairs = [("pallas", "sdpa", caches,
+    watched = {w: {n: t.clone() for n, t in caches.items()} for w in watch}
+    pairs = [("pallas", plain, caches,
               {n: t.clone() for n, t in caches.items()}, None)]
     if paged:
-        dec = DecodeEngine(model, params, num_slots=1, max_len=MAX_LEN,
+        dec = DecodeEngine(model, params, num_slots=1, max_len=max_len,
                            decode_impl="paged", device="cuda")
         dec.admit(0, "walk", caches, first, prompt_len=len(toks), max_new=16)
         table = torch.as_tensor(dec.page_table, device="cuda")
@@ -838,21 +906,22 @@ def phase_walk(torch, model, params, cfg, paged=True):
                       (logits - want).abs().max()))
         return logits, torch.softmax(torch.gather(logits, 1, ids), -1), ids
     moe_lib._route = routed
+    overall = 0.0
     try:
         for kern, plain, ck, cp, tbl in pairs:
             tok, worst, n_flips, choices, router = first, 0.0, 0, 0, 0.0
+            far = {(w, side): 0.0 for w in watched if tbl is None
+                   for side in (kern, plain)}
             for step in range(16):
-                cur = len(toks) + step
+                cur = offset + len(toks) + step
                 arr = torch.full((1, 1), tok, dtype=torch.int32,
                                  device="cuda")
                 recorded.clear()
                 flips.clear()
                 following[0] = False
-                lp, _ = model.decode(params, cp, arr, cur, decode_impl=plain,
-                                     page_table=tbl)
+                lp = decode(plain, cp, arr, cur, tbl)
                 following[0] = True
-                lk, _ = model.decode(params, ck, arr, cur, decode_impl=kern,
-                                     page_table=tbl)
+                lk = decode(kern, ck, arr, cur, tbl)
                 check(len(flips) == len(recorded),
                       f"walk {kern}: the paths made different MoE calls")
                 for n, dmax in flips:
@@ -867,15 +936,26 @@ def phase_walk(torch, model, params, cfg, paged=True):
                       f"walk {kern} vs {plain} step {step}: {diff:.4g} >= "
                       f"{WALK_BOUND} x spread {spread:.4g}")
                 worst = max(worst, diff / spread)
+                for w in watched if tbl is None else ():
+                    lw = decode(w, watched[w], arr, cur, None)
+                    sw = float(lw.max() - lw.min())
+                    for side, ls in ((kern, lk), (plain, lp)):
+                        far[w, side] = max(far[w, side],
+                                           float((ls - lw).abs().max()) / sw)
                 tok = int(lp.argmax())
             note = (f"; router logits within {router:.4g} of the plain "
                     f"path's, {n_flips} of {choices} expert sets of its own "
                     f"differ from them (near-ties)") if choices else ""
-            print(f"walk {cfg.name} {kern} vs {plain}: 16 steps, max "
-                  f"|dlogits| / spread {worst:.4g} (bound {WALK_BOUND})"
-                  f"{note}")
+            print(f"walk {cfg.name} {kern} vs {plain}: 16 steps from "
+                  f"position {offset + len(toks)}, max |dlogits| / spread "
+                  f"{worst:.4g} (bound {WALK_BOUND}){note}")
+            for (w, side), d in far.items():
+                print(f"walk {cfg.name} {side} vs {w} (watched, same "
+                      f"tokens): max |dlogits| / spread {d:.4g}")
+            overall = max(overall, worst)
     finally:
         moe_lib._route = route
+    return overall
 
 
 # ------------------------------------------------------------- phase 9 ---
@@ -939,30 +1019,44 @@ HYBRID_ARCH, HYBRID_LAYERS = "jamba-v0.1-52b", 16   # two periods of 8
 SSM_ARCH = "xlstm-125m"
 
 
-def serve_recurrent(torch, model, params, cfg, counters):
-    """Phase 3's 12 requests through the cluster with the dense decode
-    kernel on a model with recurrent mixers: every request done with 33
-    tokens; K1 launched once per attention layer and decode step and no
-    other kernel; no prefix resumed; every cold bucket one exact
-    length (no right-padding); a paged decoder refused; every request
-    routed.  Returns K1's launches."""
+def serve_gated(torch, model, params, cfg, counters, requests, warm,
+                max_len=MAX_LEN):
+    """``requests`` through the cluster with the dense decode kernel on a
+    model whose engine gates are off (recurrent mixers, an
+    encoder-decoder, a VLM), after the ``warm`` ones: every request done
+    with 33 tokens; K1 launched once per self-attention layer and decode
+    step and no other kernel; no prefix resumed or stored; every cold
+    bucket one exact length (no right-padding), and every request with
+    ``extras`` its own single-request prompt pass; a cross layer's
+    attention on the plain path, once a layer per prompt pass and decode
+    step; a paged decoder refused; every request routed.  Returns (K1's
+    launches, the serving line)."""
     from repro_torch.serving.engine import DecodeEngine
 
     n_attn = model.mixers.count("attn")
-    requests, warm = slice_requests(cfg.vocab_size)
-    serve(torch, model, params, cfg, "pallas", warm, counters)
-    buckets = []
-    inner = model.prefill_batched
+    serve(torch, model, params, cfg, "pallas", warm, counters, max_len)
+    buckets, passes, cross = [], [], [0]
+    inner_b, inner_p = model.prefill_batched, model.prefill
+    inner_x = model._cross_cached
 
-    def recorded(params, tokens, lengths, max_len=None):
+    def batched(params, tokens, lengths, max_len=None):
         buckets.append((tokens.shape[1], lengths.tolist()))
-        return inner(params, tokens, lengths, max_len)
-    model.prefill_batched = recorded
+        return inner_b(params, tokens, lengths, max_len)
+
+    def single(params, batch, max_len=None):
+        passes.append({k: tuple(v.shape) for k, v in batch.items()})
+        return inner_p(params, batch, max_len)
+
+    def cross_cached(*args):
+        cross[0] += 1
+        return inner_x(*args)
+    model.prefill_batched, model.prefill = batched, single
+    model._cross_cached = cross_cached
     try:
         cluster, done, wall, steps, launches = serve(
-            torch, model, params, cfg, "pallas", requests, counters)
+            torch, model, params, cfg, "pallas", requests, counters, max_len)
     finally:
-        del model.prefill_batched
+        del model.prefill_batched, model.prefill, model._cross_cached
     check(len(done) == 12, f"{cfg.name}: {len(done)} of 12 requests done")
     check(all(len(r.output) == 33 for r in done),
           f"{cfg.name}: output lengths {[len(r.output) for r in done]}")
@@ -973,9 +1067,20 @@ def serve_recurrent(torch, model, params, cfg, counters):
           f"{cfg.name}: other kernels launched: {launches}")
     st = cluster.prefill.stats
     check(st.reused_blocks == 0, f"{cfg.name}: a prefix was resumed")
-    check(buckets and all(set(lens) == {plen} for plen, lens in buckets),
+    check(not cluster.prefill._cache, f"{cfg.name}: a prefix was stored")
+    n_extras = sum(len(r) > 3 for r in requests)
+    check(all(set(lens) == {plen} for plen, lens in buckets)
+          and len(buckets) + len(passes) > 0,
           f"{cfg.name}: a cold bucket right-padded a row: {buckets}")
+    check(len(passes) == n_extras
+          and all(p["tokens"][0] == 1 for p in passes),
+          f"{cfg.name}: {len(passes)} single-request passes for {n_extras} "
+          f"requests with extras: {passes}")
     check(st.padded_tokens == 0, f"{cfg.name}: {st.padded_tokens} pad tokens")
+    check(cross[0] == model.n_cross * (steps + len(passes) + len(buckets)),
+          f"{cfg.name}: {cross[0]} cached cross attentions for {steps} "
+          f"steps and {len(passes) + len(buckets)} prompt passes of "
+          f"{model.n_cross} cross layers")
     check(len(cluster.control.decision_log) == 12,
           f"{cfg.name}: {len(cluster.control.decision_log)} routing decisions")
     try:
@@ -985,15 +1090,18 @@ def serve_recurrent(torch, model, params, cfg, counters):
         check("paged KV" in str(e), f"{cfg.name}: paged decoder: {e!r}")
     else:
         fail(f"{cfg.name}: a paged decoder was built")
+    line = serving_line(torch, done, wall)
     print(f"slice {cfg.name} pallas: 12 requests, {steps} decode steps, "
           f"{launches['decode_attention']} decode_attention launches "
           f"({n_attn} attention layers), no other kernel, resumed blocks "
           f"{st.reused_blocks}/{st.total_blocks}, {len(buckets)} exact-length "
-          f"prompt passes, paged decoder refused, {serving_line(torch, done, wall)}")
+          f"prompt passes, {len(passes)} single-request passes with extras, "
+          f"{cross[0]} plain cached cross attentions, paged decoder refused, "
+          f"{line}")
     del cluster, done
     gc.collect()
     torch.cuda.empty_cache()
-    return launches["decode_attention"]
+    return launches["decode_attention"], line
 
 
 def phase_recurrent(torch, F, counters):
@@ -1016,7 +1124,9 @@ def phase_recurrent(torch, F, counters):
     for arch_cfg in (cfg, get_config(SSM_ARCH)):
         t0 = time.perf_counter()
         model, params = init_on_card(torch, arch_cfg)
-        launches = serve_recurrent(torch, model, params, arch_cfg, counters)
+        requests, warm = slice_requests(arch_cfg.vocab_size)
+        launches, _ = serve_gated(torch, model, params, arch_cfg, counters,
+                                  requests, warm)
         if arch_cfg is cfg:
             records[0]["launches"] = launches
         else:
@@ -1028,6 +1138,123 @@ def phase_recurrent(torch, F, counters):
         gc.collect()
         torch.cuda.empty_cache()
     return records
+
+
+# ------------------------------------------------------------ phase 11 ---
+
+VLM_ARCH, ENCDEC_ARCH = "phi-3-vision-4.2b", "seamless-m4t-medium"
+# 576 patches + 1,024 tokens + 33 = 1,633 positions, in 128-key splits
+VLM_MAX_LEN = 1664
+VLM_LENS = (1617, 1489, 1336, 1153)    # 576 + phase 3's timed lengths
+VLM_LOSS_S = 2048                      # 576 patches + 1,472 tokens
+ENCDEC_MAX_LEN = 128                   # decoder prompts of 16-64 + 33
+ENCDEC_LENS = (96, 81, 62, 47)         # prompts of 64-15 + 32 generated
+
+
+def vlm_requests(cfg):
+    """Phase 3's 12 prompts and its warm-up one, each with (576, 1024)
+    patches drawn from a numpy seed."""
+    import numpy as np
+
+    def patches(i):
+        return np.random.default_rng([18, i]).standard_normal(
+            (cfg.num_patches, cfg.frontend_dim), dtype=np.float32)
+    requests, warm = slice_requests(cfg.vocab_size)
+    return ([(rid, t, m, {"patches": patches(i)})
+             for i, (rid, t, m) in enumerate(requests)],
+            [(rid, t, m, {"patches": patches(99)}) for rid, t, m in warm],
+            patches(100))
+
+
+def encdec_requests(cfg):
+    """12 decoder prompts of 16-64 tokens over 3 templates, 32 new tokens
+    each, each with (n, 160) frames, n drawn in 1,024-2,048 from a numpy
+    seed; a warm-up one; and the walk's frames."""
+    import numpy as np
+
+    rng = np.random.default_rng(18)
+
+    def frames(n):
+        return rng.standard_normal((n, cfg.frontend_dim), dtype=np.float32)
+    lens = rng.integers(16, 65, size=12)
+    n_frames = rng.integers(1024, 2049, size=12)
+    requests = [(f"req-{i}", template_prompt(i % 3, int(lens[i]),
+                                             cfg.vocab_size), 32,
+                 {"frames": frames(int(n_frames[i]))}) for i in range(12)]
+    warm = [("warm", template_prompt(7, 20, cfg.vocab_size), 2,
+             {"frames": frames(1024)})]
+    return requests, warm, frames(1536)
+
+
+def phase_multimodal(torch, F, counters, gpu):
+    """The encoder-decoder and VLM families at full size: K1 and K2 held
+    and timed at Phi-3-vision's attention shape (G = 1, hd = 96, K = 32:
+    the new instantiations; K2 is off the path, paged decode being refused
+    for these families), K1 at SeamlessM4T-medium's (G = 1, hd = 64, K =
+    16) and K3 at the VLM loss's (B = 1, S = 2,048, H = K = 32, hd = 96);
+    then each model served with ``extras`` on every request and walked, and
+    the VLM's loss with and without K3."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.training.data import batch_for_model
+
+    vlm, encdec = get_config(VLM_ARCH), get_config(ENCDEC_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    k1_vlm, k2_vlm = hold_decode_kernels(
+        torch, F, gen, vlm.num_heads, vlm.num_kv_heads, vlm.resolved_head_dim,
+        "_g1_hd96", max_len=VLM_MAX_LEN, lens=VLM_LENS)
+    k1_encdec, = hold_decode_kernels(
+        torch, F, gen, encdec.num_heads, encdec.num_kv_heads,
+        encdec.resolved_head_dim, "_g1_hd64", paged=False,
+        max_len=ENCDEC_MAX_LEN, lens=ENCDEC_LENS)
+    k3_vlm = time_flash(torch, F, gen, 1, VLM_LOSS_S, vlm.num_heads,
+                        vlm.num_kv_heads, vlm.resolved_head_dim, "_g1_hd96")
+    print(f"{k2_vlm['name']}: not on a path (paged decode is refused for "
+          f"the VLM), held and timed only")
+
+    t0 = time.perf_counter()
+    model, params = init_on_card(torch, vlm)
+    requests, warm, walk_patches = vlm_requests(vlm)
+    k1_vlm["launches"], line = serve_gated(
+        torch, model, params, vlm, counters, requests, warm, VLM_MAX_LEN)
+    # With its random patches the VLM amplifies last-bit differences: two
+    # plain paths with fp32 attention that differ only in summation order
+    # land 0.008-0.014 x spread apart, and the bf16 probabilities of
+    # "sdpa" 0.014-0.022 from either (an H100).  So the kernel path is held
+    # to K1's plain version in its place, and "sdpa" is watched.
+    walk = phase_walk(torch, model, params, vlm, paged=False,
+                      extras={"patches": walk_patches},
+                      offset=vlm.num_patches, max_len=VLM_MAX_LEN,
+                      plain="k1_plain", watch=("sdpa",))
+    print(f"phase 11 {vlm.name}: {line}, {k1_vlm['launches']} K1 launches, "
+          f"walk {walk:.4g} x spread; {gpu}")
+    batch = batch_for_model(vlm, ShapeConfig("vlm-loss", VLM_LOSS_S, 1,
+                                             "train"), 0, device="cuda")
+    k3_vlm["launches"] = phase_loss(torch, model, params, vlm, counters,
+                                    batch)["flash_attention"]
+    print(f"{vlm.name}: served, walked and its loss run in "
+          f"{time.perf_counter() - t0:.1f} s")
+    del model, params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model, params = init_on_card(torch, encdec)
+    requests, warm, walk_frames = encdec_requests(encdec)
+    k1_encdec["launches"], line = serve_gated(
+        torch, model, params, encdec, counters, requests, warm,
+        ENCDEC_MAX_LEN)
+    walk = phase_walk(torch, model, params, encdec, paged=False, n_prompt=48,
+                      extras={"frames": walk_frames}, max_len=ENCDEC_MAX_LEN,
+                      watch=("k1_plain",))
+    print(f"phase 11 {encdec.name}: {line}, {k1_encdec['launches']} K1 "
+          f"launches, walk {walk:.4g} x spread; {gpu}")
+    print(f"{encdec.name}: served and walked in "
+          f"{time.perf_counter() - t0:.1f} s")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [k1_vlm, k1_encdec, k3_vlm]
 
 
 def main() -> int:
@@ -1089,7 +1316,11 @@ def main() -> int:
     print(f"phase 5: flash kernel agrees with its plain version "
           f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    launches.update(phase_loss(torch, model, params, cfg, counters))
+    from repro_torch.training.data import DataConfig, make_batch
+    batch = make_batch(DataConfig(cfg.vocab_size, LOSS_S, LOSS_B, seed=0), 0,
+                       device="cuda")
+    launches.update(phase_loss(torch, model, params, cfg, counters, batch))
+    del batch
     print(f"phase 6: teacher-forced loss, flash and plain "
           f"({time.perf_counter() - t0:.1f} s)")
     del params
@@ -1120,8 +1351,20 @@ def main() -> int:
           f"served and walked at full width ({time.perf_counter() - t0:.1f} "
           f"s)")
 
+    # phase 11 needs ~7 GiB of params and ~6 GiB of KV: phase 10's are
+    # freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    print(f"before phase 11: {held:.3f} GiB held")
+    check(held < 4.0, f"{held:.2f} GiB still held before phase 11")
+    t0 = time.perf_counter()
+    records += phase_multimodal(torch, F, counters, gpu)
+    print(f"phase 11: {VLM_ARCH} and {ENCDEC_ARCH} served and walked at full "
+          f"size ({time.perf_counter() - t0:.1f} s)")
+
     for r in records:
-        if "launches" not in r:             # phases 9-10 counted their own
+        if "launches" not in r:             # phases 9-11 counted their own
             r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

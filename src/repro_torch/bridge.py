@@ -35,7 +35,10 @@ def tree_from_numpy(node, *, dtype, device, index=None):
 def params_from_numpy(tree, cfg: ModelConfig, *, dtype, device):
     """The reference params ``tree`` (float32 numpy leaves) as the port's
     params on ``device`` in ``dtype``: the stacked periods are split into
-    the port's flat list of layers, in layer order."""
+    the port's flat list of layers, in layer order, and an encoder's
+    ``enc_stack`` (period 1, stacked over the encoder layers) into the
+    list ``enc_layers``; ``frontend_proj`` and ``enc_final_norm`` carry
+    over as they are."""
     def conv(node, index=None):
         return tree_from_numpy(node, dtype=dtype, device=device, index=index)
 
@@ -44,8 +47,15 @@ def params_from_numpy(tree, cfg: ModelConfig, *, dtype, device):
     n_periods = cfg.num_layers // period
     layers = [conv(stack[f"p{j}"], i)
               for i in range(n_periods) for j in range(period)]
-    return {"embed": conv(tree["embed"]), "unembed": conv(tree["unembed"]),
-            "final_norm": conv(tree["final_norm"]), "layers": layers}
+    params = {"embed": conv(tree["embed"]), "unembed": conv(tree["unembed"]),
+              "final_norm": conv(tree["final_norm"]), "layers": layers}
+    for name in ("frontend_proj", "enc_final_norm"):
+        if name in tree:
+            params[name] = conv(tree[name])
+    if "enc_stack" in tree:
+        params["enc_layers"] = [conv(tree["enc_stack"]["p0"], i)
+                                for i in range(cfg.num_encoder_layers)]
+    return params
 
 
 def opt_state_from_numpy(tree, cfg: ModelConfig, *, device):

@@ -1,14 +1,7 @@
-"""Architecture config registry of the PyTorch port.
+"""Architecture config registry.
 
 ``get_config(name)`` returns the full published config; ``get_reduced(name)``
-returns a tiny same-family config for CPU tests.  The registry holds the
-architectures whose families the port runs: the attention-only dense
-models (phi4-mini, the serving and training slices; stablelm-3b, the
-training example's base; minitron-4b, nemotron-4-340b and the paper's own
-llama-3.1-70b), the MoE family (qwen3-moe-30b-a3b, arctic-480b), the
-hybrid Mamba/attention family (jamba-v0.1-52b) and the xLSTM family
-(xlstm-125m).  The encoder-decoder and VLM architectures join as their
-families are ported (ROADMAP.md).
+returns a tiny same-family config for CPU smoke tests.
 """
 from __future__ import annotations
 
@@ -24,12 +17,18 @@ _MODULES = {
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
     "minitron-4b": "repro_torch.configs.minitron_4b",
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
     "arctic-480b": "repro_torch.configs.arctic_480b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
-    "llama-3.1-70b": "repro_torch.configs.llama31_70b",
-    "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
+    "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
+    "phi-3-vision-4.2b": "repro_torch.configs.phi_3_vision_4_2b",
     "xlstm-125m": "repro_torch.configs.xlstm_125m",
+    # the paper's own second model (not in the assigned pool, used by serving
+    # benchmarks):
+    "llama-3.1-70b": "repro_torch.configs.llama31_70b",
 }
+
+ASSIGNED_ARCHS = [k for k in _MODULES if k != "llama-3.1-70b"]
 
 
 def get_config(name: str) -> ModelConfig:
@@ -40,3 +39,12 @@ def get_config(name: str) -> ModelConfig:
 
 def get_reduced(name: str, **overrides) -> ModelConfig:
     return reduce_config(get_config(name), **overrides)
+
+
+def all_cells():
+    """Yield every applicable (arch, shape) dry-run cell."""
+    for arch in ASSIGNED_ARCHS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            if shape_applicable(cfg, shape):
+                yield arch, shape.name

@@ -98,6 +98,7 @@ int dispatch_hd(int hd, int g, F& f) {
   switch (hd) {
     case 32: return dispatch_g<T, 32>(g, f);
     case 64: return dispatch_g<T, 64>(g, f);
+    case 96: return dispatch_g<T, 96>(g, f);
     case 128: return dispatch_g<T, 128>(g, f);
     default: return kUnsupported;
   }

@@ -80,9 +80,13 @@ struct SplitLayout {
   static constexpr int P_OFF = Q_OFF + G * HD * 4;        // float p[G][tile]
   static constexpr int STAT_OFF = P_OFF + G * kTileKeys * 4;   // m, l, alpha
   static constexpr int BYTES = STAT_OFF + 3 * G * 4 + 16;
-  static constexpr int KG = 2 * kThreads / HD;            // key groups of P V
+  // Key groups of P V: each group's HD / 2 threads hold one column pair
+  // each; 2 * kThreads / HD groups, rounded down, so where HD does not
+  // divide 2 * kThreads (HD = 96: 2 groups of 48 threads) the last
+  // threads hold no column pair.
+  static constexpr int KG = 2 * kThreads / HD;
   static_assert(S == 1 || S == 2, "ring depth");
-  static_assert(KG >= 1 && KG * HD == 2 * kThreads, "head_dim");
+  static_assert(KG >= 1 && HD % Vec<T>::N == 0, "head_dim");
   static_assert(KG * G * HD * 4 <= S * STAGE, "reduction buffer");
   static_assert(2 * kTileKeys == kThreads, "two threads per key");
 };
@@ -173,9 +177,11 @@ __device__ __forceinline__ void split_attend(const T* __restrict__ k,
   const int n_tiles = (t_end - t_begin + kTileKeys - 1) / kTileKeys;
   for (int i = 0; i < min(S, n_tiles); ++i)
     load_tile<T, G, HD, S>(k, v, t_begin, t_end, rows, smem, i);
-  // P V: this thread's column pair and key group.
+  // P V: this thread's column pair and key group; a thread of no group
+  // (kg >= KG) takes no key but reaches every barrier.
   const int dp = tid % (HD / 2);
   const int kg = tid / (HD / 2);
+  const int kg_first = kg < L::KG ? kg : kTileKeys;
   float acc[G][2];
 #pragma unroll
   for (int g = 0; g < G; ++g) acc[g][0] = acc[g][1] = 0.f;
@@ -259,7 +265,7 @@ __device__ __forceinline__ void split_attend(const T* __restrict__ k,
       acc[g][0] *= s_alpha[g];
       acc[g][1] *= s_alpha[g];
     }
-    for (int key = kg; key < n; key += L::KG) {
+    for (int key = kg_first; key < n; key += L::KG) {
       float2 vv;
       load_pair(sv + key * L::LD + 2 * dp, vv);
 #pragma unroll
@@ -276,10 +282,12 @@ __device__ __forceinline__ void split_attend(const T* __restrict__ k,
 
   // Sum the key groups' partial accumulators into acc[G][HD] at offset 0.
   float* red = reinterpret_cast<float*>(smem);
+  if (kg < L::KG) {
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    red[(kg * G + g) * HD + 2 * dp] = acc[g][0];
-    red[(kg * G + g) * HD + 2 * dp + 1] = acc[g][1];
+    for (int g = 0; g < G; ++g) {
+      red[(kg * G + g) * HD + 2 * dp] = acc[g][0];
+      red[(kg * G + g) * HD + 2 * dp + 1] = acc[g][1];
+    }
   }
   __syncthreads();
   for (int j = tid; j < G * HD; j += kThreads) {

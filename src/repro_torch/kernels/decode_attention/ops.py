@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 96, 128)
 MAX_GROUP = 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -151,7 +151,7 @@ def decode_attention(q, k, v, lengths):
     """q: (B,H,hd); k,v: (B,T,K,hd); lengths: (B,) int32.  Returns (B,H,hd).
 
     A CPU tensor takes :func:`decode_attention_plain`; a CUDA tensor
-    launches the kernel (bf16 or fp32, H/K from 1 to 8, hd in 32/64/128,
+    launches the kernel (bf16 or fp32, H/K from 1 to 8, hd in HEAD_DIMS,
     contiguous) or raises.  The kernel's grid is :func:`split_plan`'s
     (splits, K, B); its partial states go to scratch from ``torch.empty``
     and its combine counters are the device's shared buffer.  Lengths are

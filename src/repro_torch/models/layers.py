@@ -1,11 +1,10 @@
 """Core transformer layers on torch: RMSNorm, RoPE, GQA attention, MLPs.
 
-Port of ``src/repro/models/layers.py`` for the attention-only decoder.
-Parameters are plain dicts of tensors with the reference's names and
-layouts (``wq`` is ``(d, H, hd)``, ``wo`` is ``(H, hd, d)``, ...).  Compute
-runs in bf16 (``COMPUTE_DTYPE``: weights are cast to it before every
-projection), with fp32 norms, RoPE and softmax, exactly where the
-reference takes them.
+Port of ``src/repro/models/layers.py``.  Parameters are plain dicts of
+tensors with the reference's names and layouts (``wq`` is ``(d, H, hd)``,
+``wo`` is ``(H, hd, d)``, ...).  Compute runs in bf16 (``COMPUTE_DTYPE``:
+weights are cast to it before every projection), with fp32 norms, RoPE and
+softmax, exactly where the reference takes them.
 
 Caches are updated in place (the reference returns new arrays and the
 engine donates the old ones; mutating the tensor is the same thing here).
@@ -23,6 +22,10 @@ Single-token cached decode picks its attention with ``decode_impl``:
 The no-cache causal call of the teacher-forced loss runs the CUDA flash
 kernel (``repro_torch.kernels.flash_attention``) under ``use_flash``, on the
 reference's condition (S == T and S % 128 == 0), else ``_sdpa_chunked``.
+The encoder's bidirectional self-attention (``causal=False``) and the
+decoder's cross attention (``kv_source``, no RoPE) always take the plain
+``_sdpa_chunked`` under a ``'full'`` or ``'length'`` mask, as in the
+reference.
 
 On a CPU tensor the kernel wrappers run their plain PyTorch versions.
 """
@@ -127,17 +130,24 @@ def _sdpa(q, k, v, mask, q_per_kv):
     return out.reshape(b, s, h, hd)
 
 
-def _sdpa_chunked(q, k, v, qpos, q_per_kv, *, q_chunk=Q_CHUNK):
-    """Memory-bounded causal attention (kv_pos <= q_pos), ``q_chunk``
-    queries at a time.  qpos: (B,S) int query positions.  The reference's
-    'full' and 'length' masks serve the encoder-decoder family, which the
-    port does not run yet."""
+def _sdpa_chunked(q, k, v, qpos, q_per_kv, *, kind, kv_lengths=None,
+                  q_chunk=Q_CHUNK):
+    """Memory-bounded attention, ``q_chunk`` queries at a time (reference
+    layers.py:106-137).  kind: ``'causal'`` (kv_pos <= q_pos), ``'full'``
+    (no mask) or ``'length'`` (kv_pos < kv_lengths, unmasked without
+    ``kv_lengths``).  qpos: (B,S) int query positions; kv_lengths: (B,)."""
     s = q.shape[1]
     kv_pos = torch.arange(k.shape[1], device=q.device)
 
     def block(q_blk, qp_blk):
-        mask = (kv_pos[None, None, None, None, :]
-                <= qp_blk[:, None, None, :, None])
+        mask = None
+        if kind == "causal":
+            mask = (kv_pos[None, None, None, None, :]
+                    <= qp_blk[:, None, None, :, None])
+        elif kind == "length" and kv_lengths is not None:
+            lens = kv_lengths.to(q.device)
+            mask = (kv_pos[None, None, None, None, :]
+                    < lens[:, None, None, None, None])
         return _sdpa(q_blk, k, v, mask, q_per_kv)
 
     if s <= q_chunk:
@@ -152,9 +162,10 @@ def _project_out(out, params):
 
 
 def attention(params, x, cfg, *, positions=None, kv_cache=None,
-              write_index=None, use_flash=False, decode_impl="sdpa",
+              write_index=None, kv_source=None, causal=True, kv_lengths=None,
+              use_rope=True, use_flash=False, decode_impl="sdpa",
               page_table=None):
-    """Causal GQA self-attention of the decoder.
+    """General GQA attention (reference layers.py:140-282).
 
     x: (B,S,D) hidden states.
     positions: (S,) or (B,S) int query positions (RoPE and causal mask).
@@ -168,8 +179,14 @@ def attention(params, x, cfg, *, positions=None, kv_cache=None,
         (B, W) int32, and row b's position p lives in
         ``pool[page_table[b, p // block], p % block]``; unmapped entries
         point at the trash page 0.
-    use_flash: without a cache, run the flash kernel when S % 128 == 0
-        (reference layers.py:270); it has no gradient.
+    kv_source: (B,T,D): cross attention, K and V projected from it (not
+        normalised) with no RoPE; mask ``'length'`` over ``kv_lengths``
+        (B,) when given, else none.
+    causal: without a cache or ``kv_source``, a causal or (False) a full,
+        bidirectional mask.
+    use_rope: RoPE on q and k (never on cross attention).
+    use_flash: a causal call without a cache runs the flash kernel when S
+        == T and S % 128 == 0 (reference layers.py:270); it has no gradient.
     decode_impl: see the module docstring; multi-token calls always take the
         plain path.
     Returns (out, kv_cache_or_None).
@@ -179,14 +196,16 @@ def attention(params, x, cfg, *, positions=None, kv_cache=None,
     g = cfg.q_heads_per_kv
     xn = rmsnorm(params["norm"], x, cfg.norm_eps)
     q = torch.einsum("bsd,dhk->bshk", xn, params["wq"].to(COMPUTE_DTYPE))
-    k = torch.einsum("bsd,dhk->bshk", xn, params["wk"].to(COMPUTE_DTYPE))
-    v = torch.einsum("bsd,dhk->bshk", xn, params["wv"].to(COMPUTE_DTYPE))
+    src = xn if kv_source is None else kv_source.to(xn.dtype)
+    k = torch.einsum("bsd,dhk->bshk", src, params["wk"].to(COMPUTE_DTYPE))
+    v = torch.einsum("bsd,dhk->bshk", src, params["wv"].to(COMPUTE_DTYPE))
 
     if positions is None:
         positions = torch.arange(s, device=x.device)
-    cos, sin = rope_table(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if use_rope and kv_source is None:
+        cos, sin = rope_table(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     qp = positions.to(torch.int32)
     qp = qp.expand(b, s) if qp.dim() == 1 else qp
 
@@ -213,15 +232,21 @@ def attention(params, x, cfg, *, positions=None, kv_cache=None,
         else:
             kd = gather_pages(ck, table).to(COMPUTE_DTYPE)
             vd = gather_pages(cv, table).to(COMPUTE_DTYPE)
-            out = _sdpa_chunked(q, kd, vd, qp, g)
+            out = _sdpa_chunked(q, kd, vd, qp, g, kind="causal")
         return _project_out(out, params), kv_cache
 
     if kv_cache is None:
-        if use_flash and s == k.shape[1] and s % 128 == 0:
+        if kv_source is not None:
+            kind = "length" if kv_lengths is not None else "full"
+        elif not causal:
+            kind = "full"
+        elif use_flash and s == k.shape[1] and s % 128 == 0:
             out = flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=True)
+            return _project_out(out, params), None
         else:
-            out = _sdpa_chunked(q, k, v, qp, g)
+            kind = "causal"
+        out = _sdpa_chunked(q, k, v, qp, g, kind=kind, kv_lengths=kv_lengths)
         return _project_out(out, params), None
 
     ck, cv = kv_cache["k"], kv_cache["v"]
@@ -246,7 +271,8 @@ def attention(params, x, cfg, *, positions=None, kv_cache=None,
         out = decode_attention(q[:, 0].contiguous(), ck, cv, lengths)[:, None]
         return _project_out(out, params), kv_cache
 
-    out = _sdpa_chunked(q, ck.to(COMPUTE_DTYPE), cv.to(COMPUTE_DTYPE), qp, g)
+    out = _sdpa_chunked(q, ck.to(COMPUTE_DTYPE), cv.to(COMPUTE_DTYPE), qp, g,
+                        kind="causal")
     return _project_out(out, params), kv_cache
 
 

@@ -1,23 +1,35 @@
-"""The decoder model on torch: port of ``src/repro/models/model.py`` for the
-dense, MoE, hybrid (Mamba + attention) and SSM (xLSTM) families: embed,
-then per layer a sequence mixer (RMSNorm + GQA attention, or a Mamba,
-mLSTM or sLSTM block of ``ssm.py``) and an MLP, an MoE or none, then the
-final norm and an untied unembed.
+"""The model on torch: port of ``src/repro/models/model.py`` for every
+family of the reference: dense, MoE, hybrid (Mamba + attention), SSM
+(xLSTM), encoder-decoder and VLM.  Embed, then per layer a sequence mixer
+(RMSNorm + GQA attention, or a Mamba, mLSTM or sLSTM block of ``ssm.py``),
+a cross attention where the block has one, and an MLP, an MoE or none,
+then the final norm and an untied unembed.
 
 Layers follow the reference's period layout (``layer_layout``): layer i
 has the block ``descs[i % period]``, whose ``mixer`` is ``"attn"``,
-``"mamba"``, ``"mlstm"`` or ``"slstm"`` and whose ``mlp`` is ``"dense"``,
-``"moe"`` or None.  Parameters are a dict: ``embed`` (V, D), ``unembed``
+``"mamba"``, ``"mlstm"`` or ``"slstm"``, whose ``mlp`` is ``"dense"``,
+``"moe"`` or None, and whose ``cross`` adds a cross attention to the
+encoder's output.  Parameters are a dict: ``embed`` (V, D), ``unembed``
 (D, V), ``final_norm`` and ``layers``, a list of per-layer dicts holding
-the mixer's key and ``"mlp"`` or ``"moe"`` where the block has one (the
-reference's per-period stack, split; ``repro_torch.bridge`` converts).
+the mixer's key, ``"xattn"`` where the block has a cross attention, and
+``"mlp"`` or ``"moe"`` where it has one (the reference's per-period stack,
+split; ``repro_torch.bridge`` converts).  A model with a frontend has
+``frontend_proj`` (frontend_dim, D); an encoder-decoder has ``enc_layers``,
+a list of ``{"attn", "mlp"}`` blocks (``ENC_DESC``, bidirectional), and
+``enc_final_norm``.  The encoder runs on ``batch["frames"]`` projected by
+``frontend_proj``; a VLM's ``batch["patches"]``, projected the same way,
+go in front of the tokens, and the loss skips their positions.
 
-Caches stack each state leaf over the layers of its mixer kind only, batch
-at axis 1 (``CACHE_LEAVES``): ``{"k", "v"}`` (P_attn, B, T, K, hd) dense
-or (P_attn, N, block, K, hd) paged; ``{"ssm", "conv"}`` over the Mamba
+Caches stack each state leaf over the layers of its kind only, batch at
+axis 1 (``CACHE_LEAVES``): ``{"k", "v"}`` (P_attn, B, T, K, hd) dense or
+(P_attn, N, block, K, hd) paged; ``{"ssm", "conv"}`` over the Mamba
 layers; the mLSTM's and sLSTM's leaves under ``mlstm_``/``slstm_``
-prefixes (both name a leaf ``n`` and ``m``).  Layer i works on row
-``kind_row[i]`` of its kind's leaves.  An attention-only model's caches
+prefixes (both name a leaf ``n`` and ``m``); ``{"xk", "xv"}`` (P_cross,
+B, ENC_CTX_DECODE, K, hd), the encoder's K and V of each cross layer,
+filled by ``prefill`` and zero-padded to ``ENC_CTX_DECODE`` keys, which
+cross attention with a cache attends unmasked, as the reference does.
+Layer i works on row ``kind_row[i]`` of its mixer kind's leaves and row
+``cross_row[i]`` of the cross leaves.  An attention-only model's caches
 are the reference's stacked K/V.  A Python loop over the layers replaces
 ``lax.scan``.  As in the reference, a recurrent mixer takes its cached
 single-token step only for S == 1 with a cache; any longer pass recomputes
@@ -28,8 +40,8 @@ leave their inputs as they were; ``decode`` updates ``caches`` in place (the
 reference donates them).  Logits come from a bf16 product with ``unembed``
 and are returned as fp32.  ``train_loss`` is the teacher-forced
 cross-entropy, plus the MoE load-balance term; with ``use_flash`` set its
-attention runs the CUDA flash kernel, which has no gradient (as in the
-reference, which trains without it).
+causal attention runs the CUDA flash kernel, which has no gradient (as in
+the reference, which trains without it).
 """
 from __future__ import annotations
 
@@ -47,11 +59,19 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 
 
+# Deterministic synthetic-shape conventions for enc-dec / VLM cells
+ENC_CTX_DECODE = 4_096   # encoder context length used by decode shapes
+DEC_PREFIX = 64          # decoder prefix length for enc-dec prefill cells
+
+
 @dataclass(frozen=True)
 class BlockDesc:
     mixer: str                 # attn | mamba | mlstm | slstm
     mlp: Optional[str]         # dense | moe | None
     cross: bool = False
+
+
+ENC_DESC = BlockDesc("attn", "dense")
 
 
 def layer_layout(cfg: ModelConfig):
@@ -103,37 +123,30 @@ RECURRENT = {
     "slstm": Mixer("slstm_", ssm_lib.slstm_init, ssm_lib.slstm_block,
                    ssm_lib.slstm_cache_init),
 }
-# every mixer kind's cache leaves, as the caches name them
+# every mixer kind's cache leaves, and the cross attention's, as the
+# caches name them
 CACHE_LEAVES = {"attn": ("k", "v"), "mamba": ("ssm", "conv"),
                 "mlstm": ("mlstm_C", "mlstm_n", "mlstm_m"),
-                "slstm": ("slstm_c", "slstm_n", "slstm_h", "slstm_m")}
-
-
-def _unsupported(cfg: ModelConfig):
-    """The ROADMAP item that ports ``cfg``'s family, or None if the port
-    runs it now."""
-    if cfg.family in ("encdec", "vlm") or cfg.cross_attention or cfg.frontend:
-        return "encoder-decoder and VLM paths"
-    return None
+                "slstm": ("slstm_c", "slstm_n", "slstm_h", "slstm_m"),
+                "cross": ("xk", "xv")}
 
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        item = _unsupported(cfg)
-        if item is not None:
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}) waits for the ROADMAP item "
-                f"'{item}'; the port runs the dense, MoE, hybrid and SSM "
-                f"families")
         self.cfg = cfg
         self.period, self.descs = layer_layout(cfg)
         self.n_periods = cfg.num_layers // self.period
         self.n_layers = cfg.num_layers
-        self.mixers = [self.descs[i % self.period].mixer
-                       for i in range(self.n_layers)]
-        # layer i's row in the stacked cache leaves of its mixer kind
+        self.layer_descs = [self.descs[i % self.period]
+                            for i in range(self.n_layers)]
+        self.mixers = [d.mixer for d in self.layer_descs]
+        # layer i's row in the stacked cache leaves of its mixer kind, and
+        # in the cross leaves
         self.kind_row = [self.mixers[:i].count(m)
                          for i, m in enumerate(self.mixers)]
+        self.cross_row = [sum(d.cross for d in self.layer_descs[:i])
+                          for i in range(self.n_layers)]
+        self.n_cross = sum(d.cross for d in self.layer_descs)
         self.use_flash = False   # the loss's attention on the flash kernel
 
     # ------------------------------------------------------------- init ----
@@ -141,7 +154,7 @@ class Model:
     def init(self, generator: torch.Generator, dtype=torch.float32,
              device=None):
         """Random weights with the reference's distributions and scales
-        (model.py:110-133, layers.py:71-83, 306-315, moe.py:23-40,
+        (model.py:84-133, layers.py:71-83, 306-315, moe.py:23-40,
         ssm.py:25-44, 183-201, 344-356), drawn
         from ``generator`` on ``device`` (``cuda`` unless the caller names
         another; the generator must live there too), one leaf at a time in
@@ -149,14 +162,23 @@ class Model:
         cfg = self.cfg
         dev = resolve_device(device)
         d, v = cfg.d_model, cfg.vocab_size
-        return {
+        params = {
             "embed": L._init(generator, (v, d), 0.02, dtype, dev),
             "unembed": L._init(generator, (d, v), d ** -0.5, dtype, dev),
             "final_norm": L.rmsnorm_init(d, dtype, dev),
-            "layers": [self._block_init(generator, self.descs[i % self.period],
-                                        dtype, dev)
-                       for i in range(self.n_layers)],
+            "layers": [self._block_init(generator, desc, dtype, dev)
+                       for desc in self.layer_descs],
         }
+        if cfg.frontend:
+            params["frontend_proj"] = L._init(
+                generator, (cfg.frontend_dim, d), cfg.frontend_dim ** -0.5,
+                dtype, dev)
+        if cfg.num_encoder_layers:
+            params["enc_layers"] = [
+                self._block_init(generator, ENC_DESC, dtype, dev)
+                for _ in range(cfg.num_encoder_layers)]
+            params["enc_final_norm"] = L.rmsnorm_init(d, dtype, dev)
+        return params
 
     def _block_init(self, generator, desc: BlockDesc, dtype, device):
         cfg = self.cfg
@@ -165,6 +187,8 @@ class Model:
         else:
             init = RECURRENT[desc.mixer].init
             p = {desc.mixer: init(generator, cfg, dtype, device)}
+        if desc.cross:
+            p["xattn"] = L.attention_init(generator, cfg, dtype, device)
         if desc.mlp == "dense":
             p["mlp"] = L.mlp_init(generator, cfg, dtype, device)
         elif desc.mlp == "moe":
@@ -183,11 +207,19 @@ class Model:
                 "v": torch.zeros(shape, dtype=KV_DTYPE, device=device)}
 
     def cache_init(self, batch, max_len, device):
-        """The decode caches (module docstring): K/V zeros in bf16, and
-        each recurrent kind's state as its ``*_cache_init`` gives it (fp32
+        """The decode caches (module docstring): K/V zeros in bf16, each
+        recurrent kind's state as its ``*_cache_init`` gives it (fp32
         states, ``-inf`` stabilisers, a bf16 conv state), stacked over the
-        layers of that kind."""
+        layers of that kind, and the cross layers' encoder K/V, zeros in
+        the compute dtype (model.py:306-311)."""
         caches = self._zeros(batch, max_len, device)
+        if self.n_cross:
+            cfg = self.cfg
+            shape = (self.n_cross, batch, ENC_CTX_DECODE, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            for name in CACHE_LEAVES["cross"]:
+                caches[name] = torch.zeros(shape, dtype=L.COMPUTE_DTYPE,
+                                           device=device)
         for kind, mixer in RECURRENT.items():
             n = self.mixers.count(kind)
             if n:
@@ -208,11 +240,16 @@ class Model:
         return self._zeros(num_pages + 1, block, device)
 
     def _layer_cache(self, caches, i):
-        """Layer i's views of ``caches``, under its block's own names."""
+        """Layer i's views of ``caches``, under its block's own names (and
+        ``xk``/``xv`` for a cross layer)."""
         kind, j = self.mixers[i], self.kind_row[i]
         names = CACHE_LEAVES[kind]
         prefix = "" if kind == "attn" else RECURRENT[kind].prefix
-        return {n[len(prefix):]: caches[n][j] for n in names}
+        views = {n[len(prefix):]: caches[n][j] for n in names}
+        if self.layer_descs[i].cross:
+            views.update((n, caches[n][self.cross_row[i]])
+                         for n in CACHE_LEAVES["cross"])
+        return views
 
     # The reference's capability gates (model.py:338-345, 400-418): each
     # needs a pure causal-attention stack; a recurrent mixer's state has no
@@ -241,19 +278,20 @@ class Model:
     # ------------------------------------------------------------ stack ----
 
     def _run_stack(self, params, x, caches, *, positions, write_index=None,
-                   decode_impl="sdpa", page_table=None, remat=False):
+                   decode_impl="sdpa", page_table=None, remat=False,
+                   enc_out=None):
         """The layers in order; returns (x, the sum of the MoE layers'
         ``moe_aux_loss``, a 0-d fp32 tensor, or 0.0 without MoE layers),
-        as the reference's scan body sums it (model.py:209-226).
-        ``caches=None`` is the loss's pass (no cache, nothing written);
-        ``remat`` recomputes each layer in the backward pass instead of
-        keeping its activations (the reference checkpoints the scan body,
-        model.py:228-229)."""
+        as the reference's scan body sums it (model.py:206-237).
+        ``caches=None`` is the loss's pass (no cache, nothing written; a
+        cross layer attends to ``enc_out``); ``remat`` recomputes each
+        layer in the backward pass instead of keeping its activations (the
+        reference checkpoints the scan body, model.py:228-229)."""
         aux_sum = 0.0
         for i, lp in enumerate(params["layers"]):
             bc = None if caches is None else self._layer_cache(caches, i)
-            args = (lp, self.mixers[i], x, bc, positions, write_index,
-                    decode_impl, page_table)
+            args = (lp, self.layer_descs[i], x, bc, positions, write_index,
+                    decode_impl, page_table, enc_out)
             if remat:
                 x, aux = checkpoint(self._layer, *args, use_reentrant=False)
             else:
@@ -262,24 +300,31 @@ class Model:
                 aux_sum = aux_sum + aux
         return x, aux_sum
 
-    def _layer(self, lp, mixer, x, bc, positions, write_index, decode_impl,
-               page_table):
+    def _layer(self, lp, desc, x, bc, positions, write_index, decode_impl,
+               page_table, enc_out, causal=True):
         """One block -> (x, its ``moe_aux_loss`` or None).  ``bc``, the
-        layer's cache views, is written in place (model.py:140-191)."""
+        layer's cache views, is written in place (model.py:141-192)."""
         cfg = self.cfg
-        if mixer == "attn":
+        if desc.mixer == "attn":
             h, _ = L.attention(lp["attn"], x, cfg, positions=positions,
                                kv_cache=bc, write_index=write_index,
-                               use_flash=self.use_flash,
+                               causal=causal, use_flash=self.use_flash,
                                decode_impl=decode_impl, page_table=page_table)
         else:
             is_step = x.shape[1] == 1 and bc is not None
-            h, state = RECURRENT[mixer].block(lp[mixer], x, cfg,
-                                              cache=bc if is_step else None)
+            h, state = RECURRENT[desc.mixer].block(
+                lp[desc.mixer], x, cfg, cache=bc if is_step else None)
             if bc is not None:
                 for name, t in state.items():
                     bc[name].copy_(t)
         x = x + h
+        if desc.cross:
+            if bc is not None:
+                h = self._cross_cached(lp["xattn"], x, bc["xk"], bc["xv"])
+            else:
+                h, _ = L.attention(lp["xattn"], x, cfg, kv_source=enc_out,
+                                   causal=False, use_rope=False)
+            x = x + h
         if "moe" in lp:
             h, aux = moe_lib.moe(lp["moe"], x, cfg)
             return x + h, aux["moe_aux_loss"]
@@ -287,9 +332,69 @@ class Model:
             x = x + L.mlp(lp["mlp"], x, cfg)
         return x, None
 
+    def _cross_cached(self, params, x, xk, xv):
+        """Cross attention against the cached encoder K/V: every one of
+        the cache's ``ENC_CTX_DECODE`` keys, zero padding included, with no
+        mask (model.py:194-202)."""
+        cfg = self.cfg
+        dt = L.COMPUTE_DTYPE
+        xn = L.rmsnorm(params["norm"], x, cfg.norm_eps)
+        q = torch.einsum("bsd,dhk->bshk", xn, params["wq"].to(dt))
+        out = L._sdpa(q, xk.to(dt), xv.to(dt), None, cfg.q_heads_per_kv)
+        return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
+
+    def _run_encoder(self, params, frames):
+        """The encoder over ``frames`` (B, S, frontend_dim): projected by
+        ``frontend_proj``, then each ``ENC_DESC`` block with bidirectional
+        self-attention, then ``enc_final_norm`` (model.py:239-253)."""
+        dt = L.COMPUTE_DTYPE
+        frames = torch.as_tensor(frames, device=params["embed"].device)
+        x = torch.einsum("bsf,fd->bsd", frames.to(dt),
+                         params["frontend_proj"].to(dt))
+        for lp in params["enc_layers"]:
+            x, _ = self._layer(lp, ENC_DESC, x, None, None, None, "sdpa",
+                               None, None, causal=False)
+        return L.rmsnorm(params["enc_final_norm"], x, self.cfg.norm_eps)
+
     def _embed(self, params, tokens):
         tokens = torch.as_tensor(tokens, device=params["embed"].device)
         return params["embed"][tokens.long()].to(L.COMPUTE_DTYPE)
+
+    def _embed_inputs(self, params, batch):
+        """(x, enc_out or None, label offset) of ``batch`` (model.py:
+        257-271): an encoder-decoder runs its encoder on ``frames``; a
+        VLM's ``patches``, projected, go in front of the tokens, and the
+        offset is their count."""
+        cfg = self.cfg
+        enc_out = None
+        if cfg.family == "encdec":
+            enc_out = self._run_encoder(params, batch["frames"])
+        x = self._embed(params, batch["tokens"])
+        offset = 0
+        if cfg.family == "vlm" and "patches" in batch:
+            dt = L.COMPUTE_DTYPE
+            patches = torch.as_tensor(batch["patches"], device=x.device)
+            pe = torch.einsum("bpf,fd->bpd", patches.to(dt),
+                              params["frontend_proj"].to(dt))
+            x = torch.cat([pe, x], dim=1)
+            offset = pe.shape[1]
+        return x, enc_out, offset
+
+    def _fill_cross_cache(self, params, caches, enc_out):
+        """Each cross layer's encoder K and V, cut or zero-padded to the
+        cache's ``ENC_CTX_DECODE`` keys, into ``caches`` in place
+        (model.py:447-464)."""
+        dt = L.COMPUTE_DTYPE
+        src = enc_out.to(dt)
+        for i, lp in enumerate(params["layers"]):
+            if not self.layer_descs[i].cross:
+                continue
+            j = self.cross_row[i]
+            for name, w in (("xk", "wk"), ("xv", "wv")):
+                kv = torch.einsum("bsd,dhk->bshk", src,
+                                  lp["xattn"][w].to(dt))
+                dst = caches[name][j]
+                dst.copy_(_fit_len(kv, dst.shape[1]))
 
     def _logits(self, params, x):
         """x: (B,1,D) -> fp32 (B,V) from the bf16 product with unembed."""
@@ -303,12 +408,14 @@ class Model:
     def train_loss(self, params, batch, *, remat=True):
         """Next-token cross-entropy of ``batch["tokens"]`` (B,S) int, plus
         0.01 x the MoE aux loss per period when the model has MoE layers; a
-        0-d fp32 tensor on the params' device (model.py:275-288; the port's
-        families have no frontend offset)."""
-        x = self._embed(params, batch["tokens"])
+        0-d fp32 tensor on the params' device (model.py:275-288).  A VLM's
+        patch positions are left out of the loss."""
+        x, enc_out, offset = self._embed_inputs(params, batch)
         x, aux = self._run_stack(params, x, None, positions=None,
-                                 remat=remat)
+                                 remat=remat, enc_out=enc_out)
         x = L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        if offset:
+            x = x[:, offset:, :]
         tokens = torch.as_tensor(batch["tokens"], device=x.device).long()
         loss = _chunked_ce(x[:, :-1], tokens[:, 1:], params["unembed"])
         if self.cfg.moe is not None:
@@ -318,14 +425,20 @@ class Model:
     # ----------------------------------------------------------- serving ---
 
     def prefill(self, params, batch, max_len=None):
-        """batch: {"tokens": (B,S) int}.  Returns (last_logits (B,V) fp32,
-        caches sized ``max_len``)."""
-        x = self._embed(params, batch["tokens"])
+        """batch: {"tokens": (B,S) int}, with ``frames`` (B, S_enc,
+        frontend_dim) for an encoder-decoder or ``patches`` (B, P,
+        frontend_dim) for a VLM.  Returns (last_logits (B,V) fp32, caches
+        sized ``max_len``): a VLM's caches hold the P patch positions, then
+        the tokens'; an encoder-decoder's hold its cross K/V
+        (model.py:348-364)."""
+        x, enc_out, _ = self._embed_inputs(params, batch)
         b, s = x.shape[0], x.shape[1]
         caches = self.cache_init(b, max_len or s, x.device)
+        if self.cfg.family == "encdec" and enc_out is not None:
+            self._fill_cross_cache(params, caches, enc_out)
         positions = torch.arange(s, device=x.device)
         x, _ = self._run_stack(params, x, caches, positions=positions,
-                            write_index=0)
+                               write_index=0, enc_out=enc_out)
         return self._logits(params, x[:, -1:]), caches
 
     def prefill_batched(self, params, tokens, lengths, max_len=None):
@@ -385,6 +498,13 @@ class Model:
 
 
 LOSS_CHUNK = 512
+
+
+def _fit_len(x, t):
+    """x cut or zero-padded along axis 1 to ``t`` (model.py:568-575)."""
+    if x.shape[1] >= t:
+        return x[:, :t]
+    return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, t - x.shape[1]))
 
 
 def _chunked_ce(x, tgt, unembed, chunk=LOSS_CHUNK):

@@ -101,9 +101,17 @@ class PrefillEngine:
     def _tokens(self, array) -> torch.Tensor:
         return torch.as_tensor(np.asarray(array, np.int32), device=self.device)
 
-    def _prefill(self, tokens: Sequence[int]):
-        return self.model.prefill(self.params, {"tokens": self._tokens(
-            [tokens])}, max_len=self.max_len)
+    def _prefill(self, tokens: Sequence[int], extras: Optional[dict] = None):
+        """The prompt pass of one request; its ``extras`` arrays join the
+        batch with a leading batch axis, float64 as float32, as
+        ``jnp.asarray`` gives them to the reference (engine.py:229-232)."""
+        batch = {"tokens": self._tokens([tokens])}
+        for name, value in (extras or {}).items():
+            a = np.asarray(value)[None]
+            if a.dtype == np.float64:
+                a = a.astype(np.float32)
+            batch[name] = torch.as_tensor(a, device=self.device)
+        return self.model.prefill(self.params, batch, max_len=self.max_len)
 
     # ------------------------------------------------------ prefix cache ----
 
@@ -199,14 +207,12 @@ class PrefillEngine:
                 hashes: Optional[Sequence[int]] = None):
         """Single-request prompt pass -> (last_logits (V,), cache bundle).
 
-        Resumes from the longest cached block prefix when possible and
-        always recomputes at least the last token."""
-        if extras:
-            raise NotImplementedError(
-                "multimodal extras wait for the ROADMAP item "
-                "'encoder-decoder and VLM paths'")
-        resumable = self.model.supports_prefill_resume and \
-            self.cache_entries > 0
+        Resumes from the longest cached block prefix when possible; a miss
+        (or a model without resumable prefill, or multimodal ``extras``,
+        which is never resumed nor stored) pays the full pass.  Always
+        recomputes at least the last token."""
+        resumable = (self.model.supports_prefill_resume and not extras
+                     and self.cache_entries > 0)
         if hashes is None and resumable:
             hashes = block_hashes(tokens, self.block_size)
         hashes = tuple(hashes or ())
@@ -223,7 +229,7 @@ class PrefillEngine:
             logits, caches = self.model.prefill_resume(
                 self.params, donor, self._tokens([tokens[start:]]), start)
         else:
-            logits, caches = self._prefill(tokens)
+            logits, caches = self._prefill(tokens, extras)
         logits = logits[0].cpu().numpy()
         wall = time.perf_counter() - t0
         st = self.stats
@@ -264,6 +270,8 @@ class PrefillEngine:
         seen: dict = {}     # tokens tuple -> primary idx
         for i, (tokens, extras, hashes) in enumerate(requests):
             if extras:
+                # multimodal inputs carry per-request arrays; keep them on
+                # the exact single-request path
                 logits, caches = self.prefill(tokens, extras, hashes=hashes)
                 results[i] = (logits, caches, 0)
                 continue
@@ -656,8 +664,9 @@ class DecodeEngine:
 
 
 def kv_token_bytes(model: Model) -> int:
-    """KV bytes per cached token position (the attention layers, K and V,
-    bf16); a recurrent mixer's state does not grow with the length."""
+    """KV bytes per cached token position (the self-attention layers, K
+    and V, bf16); a recurrent mixer's state and a cross layer's encoder
+    K/V do not grow with the length (engine.py:722-727)."""
     cfg = model.cfg
     n_attn = model.mixers.count("attn")
     return 2 * n_attn * cfg.num_kv_heads * cfg.resolved_head_dim * 2

@@ -59,15 +59,33 @@ def batch_iterator(cfg: DataConfig, start_step: int = 0, host_id: int = 0,
         step += 1
 
 
+def to_bf16(draw: np.ndarray) -> torch.Tensor:
+    """A float64 array as a bf16 tensor on the CPU, rounded as
+    ``jnp.asarray(draw, jnp.bfloat16)`` rounds it: to float32 first, then
+    to bf16, each to nearest even.  A value just above a bf16 halfway point
+    that float32 rounds onto it then rounds to even, as it does there."""
+    return torch.from_numpy(np.asarray(draw, np.float32)).to(torch.bfloat16)
+
+
 def batch_for_model(model_cfg: ModelConfig, shape: ShapeConfig, step: int,
                     seed: int = 0, device=None) -> dict:
-    """The model-input batch of a train step.  The port runs the dense
-    family; the VLM and encoder-decoder frontends wait for their ROADMAP
-    item."""
-    if model_cfg.family in ("vlm", "encdec"):
-        raise NotImplementedError(
-            f"{model_cfg.name} ({model_cfg.family}) batches wait for the "
-            f"ROADMAP item 'encoder-decoder and VLM paths'")
-    dc = DataConfig(vocab_size=model_cfg.vocab_size, seq_len=shape.seq_len,
+    """The full model-input batch of a train step, frontend stubs included
+    (data.py:61-78 there): a VLM's ``patches`` (B, num_patches,
+    frontend_dim) take ``num_patches`` of the sequence from the tokens; an
+    encoder-decoder's ``frames`` are (B, seq_len, frontend_dim).  Both are
+    standard normal draws of ``SeedSequence([seed, step, 777])`` in bf16,
+    bit-equal to the reference's (:func:`to_bf16`)."""
+    seq_len = shape.seq_len
+    if model_cfg.family == "vlm":
+        seq_len -= model_cfg.num_patches
+    dc = DataConfig(vocab_size=model_cfg.vocab_size, seq_len=seq_len,
                     global_batch=shape.global_batch, seed=seed)
-    return make_batch(dc, step, device=device)
+    batch = make_batch(dc, step, device=device)
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step, 777]))
+    stub = {"vlm": ("patches", model_cfg.num_patches),
+            "encdec": ("frames", shape.seq_len)}.get(model_cfg.family)
+    if stub is not None:
+        name, n = stub
+        draw = rng.normal(size=(shape.global_batch, n, model_cfg.frontend_dim))
+        batch[name] = to_bf16(draw).to(batch["tokens"].device)
+    return batch

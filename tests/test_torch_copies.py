@@ -32,15 +32,24 @@ COPIES = [
     "configs/minitron_4b.py", "configs/nemotron_4_340b.py",
     "configs/llama31_70b.py",
     "configs/jamba_v0_1_52b.py", "configs/xlstm_125m.py",
+    "configs/seamless_m4t_medium.py", "configs/phi_3_vision_4_2b.py",
+    "configs/__init__.py",
 ]
 
 
 class _Normalise(ast.NodeTransformer):
-    """Rewrite ``repro`` import paths to ``repro_torch``."""
+    """Rewrite ``repro`` import paths to ``repro_torch``: those of import
+    statements, and the module paths the config registry names as strings
+    for ``importlib``."""
 
     def visit_ImportFrom(self, node):
         if node.module == "repro" or (node.module or "").startswith("repro."):
             node.module = "repro_torch" + node.module[len("repro"):]
+        return node
+
+    def visit_Constant(self, node):
+        if isinstance(node.value, str) and node.value.startswith("repro."):
+            node.value = "repro_torch" + node.value[len("repro"):]
         return node
 
 
@@ -49,7 +58,7 @@ def _tree(path):
 
 
 def test_copy_list():
-    assert len(COPIES) == len(set(COPIES)) == 29
+    assert len(COPIES) == len(set(COPIES)) == 32
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -123,13 +132,14 @@ def test_model_layout_is_the_references():
 
 
 def test_registry_functions_are_copies():
-    """The port's registry holds the configs of the families it runs; its
-    lookup functions are the reference's."""
+    """The port's registry holds every config of the reference; its
+    functions are the reference's, all of them."""
     def functions(path):
         tree = ast.parse(path.read_text())
         return {n.name: ast.dump(n) for n in tree.body
                 if isinstance(n, ast.FunctionDef)}
     ref = functions(REF / "configs" / "__init__.py")
     port = functions(PORT / "configs" / "__init__.py")
-    assert set(port) == {"get_config", "get_reduced"}
+    assert set(port) == set(ref) == {"get_config", "get_reduced",
+                                     "all_cells"}
     assert all(port[name] == ref[name] for name in port)

@@ -43,7 +43,7 @@ def _t(rng, shape, dtype, dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g,hd", [(1, 64), (3, 128), (4, 32), (8, 128),
-                                  (8, 64), (4, 128)])
+                                  (8, 64), (4, 128), (1, 96), (3, 96)])
 def test_decode_kernel_matches_plain(dev, g, hd, dtype):
     rng = np.random.default_rng(g * hd)
     b, t, kh = 4, 700, 2
@@ -156,6 +156,44 @@ def test_paged_kernel_at_qwen3_shape(dev, case, dtype):
         assert torch.all(first[0] == 0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge", ["split", "empty"])
+@pytest.mark.parametrize("kernel", ["dense", "paged"])
+def test_decode_kernels_at_phi3_vision_shape(dev, kernel, edge, dtype):
+    """Phi-3-vision's attention shape, 32 KV heads of G = 1 at hd = 96 (a
+    head_dim that does not divide the kernels' 256 column pairs), T = 1664
+    (W = 104 pages): lengths at the split boundaries, or an empty slot
+    beside full windows; two calls in a row give the same bits."""
+    rng = np.random.default_rng(96 + (edge == "split") * 2
+                                + (dtype == torch.float32))
+    b, t, kh, g, hd = 4, 1664, 32, 1, 96
+    w = t // 16
+    q = _t(rng, (b, kh * g, hd), dtype, dev)
+    if kernel == "dense":
+        split = dops.split_plan(b, t, kh, g, hd).chunk
+        kv = [_t(rng, (b, t, kh, hd), dtype, dev) for _ in range(2)]
+        call, plain = dops.decode_attention, dops.decode_attention_plain
+    else:
+        split = pops.split_plan(b, w, 16, kh, g, hd).chunk
+        n = b * w + 1
+        kv = [_t(rng, (n, 16, kh, hd), dtype, dev) for _ in range(2)]
+        kv.append(torch.from_numpy(rng.integers(1, n, (b, w))
+                                   .astype(np.int32)).to(dev))
+        call, plain = pops.paged_attention, pops.paged_attention_plain
+    lens = ([split - 1, split, split + 1, t] if edge == "split"
+            else [0, t, t + 9, 2 * split + 1])
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = call.launches
+    first = call(q, *kv, lengths)
+    again = call(q, *kv, lengths)
+    assert call.launches == before + 2
+    assert torch.equal(first, again)
+    torch.testing.assert_close(first, plain(q, *kv, lengths),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    if edge == "empty":
+        assert torch.all(first[0] == 0)
+
+
 def test_wrapper_raises_on_strided_input(dev):
     q = torch.zeros((2, 6, 64), device=dev)
     k = torch.zeros((2, 64, 2, 128), device=dev)[..., ::2]
@@ -260,6 +298,41 @@ def test_model_walk_kernel_vs_plain(dev, impls):
                              decode_impl=impls[0], page_table=table)
         lp, _ = model.decode(params, other, tok[:, None], cur,
                              decode_impl=impls[1], page_table=table)
+        spread = (lp.max(-1).values - lp.min(-1).values)
+        assert torch.all((lk - lp).abs().max(-1).values < 0.02 * spread)
+        tok = lp.argmax(-1)
+
+
+@pytest.mark.parametrize("name,stub,hd", [
+    ("phi-3-vision-4.2b", "patches", 96), ("seamless-m4t-medium", "frames",
+                                           64)])
+def test_encdec_vlm_walk_kernel_vs_plain(dev, name, stub, hd):
+    """The reduced VLM (hd 96, as the full model) and encoder-decoder on
+    the card: a prefill with patches or frames, then 8 forced decode steps
+    from the prompt's end, ``"pallas"`` (K1, once a self-attention layer
+    and step) against ``"sdpa"`` within 0.02 x the logit spread."""
+    cfg = get_reduced(name, head_dim=hd)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=dev,
+                         generator=gen)
+    n = cfg.num_patches if stub == "patches" else 57
+    extra = torch.randn((2, n, cfg.frontend_dim), device=dev, generator=gen)
+    logits, caches = model.prefill(params, {"tokens": toks, stub: extra},
+                                   max_len=96)
+    other = {k: t.clone() for k, t in caches.items()}
+    pos = 40 + (cfg.num_patches if stub == "patches" else 0)
+    tok = logits.argmax(-1)
+    for step in range(8):
+        cur = torch.full((2,), pos + step, dtype=torch.int32, device=dev)
+        before = dops.decode_attention.launches
+        lk, _ = model.decode(params, caches, tok[:, None], cur,
+                             decode_impl="pallas")
+        assert dops.decode_attention.launches == before + cfg.num_layers
+        lp, _ = model.decode(params, other, tok[:, None], cur,
+                             decode_impl="sdpa")
         spread = (lp.max(-1).values - lp.min(-1).values)
         assert torch.all((lk - lp).abs().max(-1).values < 0.02 * spread)
         tok = lp.argmax(-1)

@@ -101,6 +101,19 @@ def _close(port, ref, dtype):
                                atol=tol, rtol=tol)
 
 
+def test_dense_split_plan_at_phi3_vision_shape():
+    """4 slots, T = 1664, 32 KV heads of G = 1, hd 96 (Phi-3-vision): 13
+    splits of 128 keys; 1,664 blocks, 1,472 of them with keys at the
+    lengths of 576 patches plus 577-1041 tokens."""
+    plan = dops.split_plan(4, 1664, 32, 1, 96)
+    assert (plan.chunk, plan.splits) == (128, 13)
+    assert plan.partial_shape == (4, 32, 13, 96 + 2)
+    assert plan.counters == 128
+    with_keys = sum(-(-n // plan.chunk) for n in (1617, 1489, 1336, 1153))
+    assert with_keys * 32 == 1472
+    assert 96 in dops.HEAD_DIMS
+
+
 def test_dense_split_plan_at_the_main_shape():
     """4 slots, T = 1088, 8 KV heads of G = 3, hd 128: 128-key splits, 9
     per slot; 288 blocks, 224 of them with keys at the decode step's
@@ -143,6 +156,58 @@ def test_dense_mirror_matches_plain_and_pallas(g, dtype):
     _close(mirror, jax_decode(*jax_args), dtype)
     _close(plain, jax_decode(*jax_args), dtype)
     assert torch.all(mirror[0] == 0) and torch.isfinite(mirror).all()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("g", [1, 3])
+def test_dense_mirror_matches_plain_and_pallas_at_hd96(g, dtype):
+    """hd = 96 (Phi-3-vision's), which does not divide the kernel's 256
+    column pairs: the same lengths as above, G 1 and 3."""
+    b, kh, hd = 11, 2, 96
+    chunk = dops.split_plan(b, 1, kh, g, hd).chunk
+    t = 2 * chunk + 37
+    lengths = [0, 1, TILE - 1, TILE, TILE + 1, chunk - 1, chunk, chunk + 1,
+               2 * chunk + 1, t, t + 9]
+    jax_args, args = _inputs(b, t, kh, g, hd, lengths, dtype, seed=90 + g)
+    mirror = dense_split_mirror(*args)
+    _close(mirror, dops.decode_attention_plain(*args).float().numpy(), dtype)
+    _close(mirror, jax_decode(*jax_args), dtype)
+    assert torch.all(mirror[0] == 0) and torch.isfinite(mirror).all()
+
+
+def pv_owners(hd, threads=128):
+    """The kernel's P V mapping (csrc/decode_split.cuh, split_attend): the
+    thread that accumulates each (key of a 64-row tile, column pair), and
+    the key groups the reduction sums.  Thread tid holds column pair tid %
+    (hd / 2) in key group tid // (hd / 2), keys kg, kg + KG, ...; a thread
+    with kg >= KG = 2 * threads // hd (rounded down) holds none."""
+    kg_count = 2 * threads // hd
+    owners = {}
+    for tid in range(threads):
+        dp, kg = tid % (hd // 2), tid // (hd // 2)
+        if kg >= kg_count:
+            continue
+        for key in range(kg, TILE, kg_count):
+            owners.setdefault((key, dp), []).append(tid)
+    return owners, kg_count
+
+
+@pytest.mark.parametrize("hd", dops.HEAD_DIMS)
+def test_pv_mapping_covers_each_key_and_column_once(hd):
+    """Every (key, column pair) of a tile is accumulated by exactly one
+    thread for every head_dim the kernels are built for, hd = 96 included
+    (2 key groups of 48 threads; 32 threads idle), and the reduction's
+    buffer of KG rows of G * hd floats fits the shared memory of one
+    stage (the static_assert of SplitLayout)."""
+    owners, kg_count = pv_owners(hd)
+    assert kg_count >= 1
+    assert set(owners) == {(k, dp) for k in range(TILE)
+                           for dp in range(hd // 2)}
+    assert all(len(t) == 1 for t in owners.values())
+    for dtype_bytes, vec in ((4, 4), (2, 8)):
+        assert hd % vec == 0                          # 16-byte row pieces
+        stage = 2 * TILE * (hd + 32 // dtype_bytes) * dtype_bytes
+        assert kg_count * dops.MAX_GROUP * hd * 4 <= stage
 
 
 @pytest.mark.parametrize("chunk", [64, 256])

@@ -172,13 +172,56 @@ def test_model_builds_the_moe_family(name):
     assert all(set(layer) == {"attn", "moe"} for layer in params["layers"])
 
 
-@pytest.mark.parametrize("family,item", [
-    ("encdec", "encoder-decoder"), ("vlm", "encoder-decoder")])
-def test_model_still_refuses_the_other_families(family, item):
-    import dataclasses
-    cfg = dataclasses.replace(get_reduced("qwen3-moe-30b-a3b"), family=family)
-    with pytest.raises(NotImplementedError, match=item):
-        Model(cfg)
+@pytest.mark.parametrize("name,keys", [
+    ("seamless-m4t-medium", {"attn", "xattn", "mlp"}),
+    ("phi-3-vision-4.2b", {"attn", "mlp"})])
+def test_model_builds_the_encdec_and_vlm_families(name, keys):
+    """The two families the port refused until it ran them: each builds,
+    with its frontend projection, and the encoder-decoder with its
+    encoder and a cross attention in every decoder layer."""
+    model = Model(get_reduced(name))
+    params = model.init(torch.Generator().manual_seed(0), torch.bfloat16,
+                        device="cpu")
+    assert all(set(layer) == keys for layer in params["layers"])
+    cfg = model.cfg
+    assert params["frontend_proj"].shape == (cfg.frontend_dim, cfg.d_model)
+    encdec = cfg.family == "encdec"
+    assert ("enc_layers" in params) == ("enc_final_norm" in params) == encdec
+    assert model.n_cross == (cfg.num_layers if encdec else 0)
+    assert not (model.supports_paged_decode or model.supports_padded_prefill
+                or model.supports_prefill_resume)
+
+
+def test_every_registry_architecture_builds():
+    """``Model(get_config(name))`` for all 11 names of the registry (no
+    init: the layout, the layer lists and the cache rows)."""
+    from repro_torch.configs import _MODULES, get_config
+    assert len(_MODULES) == 11
+    for name in _MODULES:
+        model = Model(get_config(name))
+        assert model.cfg.name == name
+        assert len(model.layer_descs) == model.n_layers == \
+            model.cfg.num_layers
+
+
+CHANGED = ("models/layers.py", "models/model.py", "serving/engine.py",
+           "training/data.py", "training/optimizer.py", "bridge.py",
+           "configs/__init__.py", "configs/seamless_m4t_medium.py",
+           "configs/phi_3_vision_4_2b.py",
+           "kernels/decode_attention/ops.py")
+
+
+@pytest.mark.parametrize("rel", CHANGED)
+def test_slice_modules_import_only_torch_numpy_and_the_port(rel):
+    """The modules the encoder-decoder and VLM slice changed import
+    nothing of JAX or the JAX package: only the standard library, numpy,
+    torch and the port."""
+    import sys
+    path = ROOT / "src" / "repro_torch" / rel
+    names = {n.split(".")[0] for n in _imported(ast.parse(path.read_text()))}
+    assert names & set(FORBIDDEN) == set()
+    assert names - set(sys.stdlib_module_names) <= {"numpy", "torch",
+                                                    "repro_torch"}
 
 
 def test_ssm_module_imports_only_torch():

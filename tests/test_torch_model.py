@@ -168,12 +168,19 @@ def test_forced_decode_walk(models, impl):
         tok = np.argmax(np.asarray(jl), axis=-1).astype(np.int32)
 
 
-def test_unsupported_families_raise():
-    """The port builds the dense, MoE, hybrid and SSM families
-    (tests/test_torch_moe_model.py, tests/test_torch_hybrid_model.py) and
-    refuses the rest."""
+def test_encdec_and_vlm_families_build():
+    """The port builds every family: dense, MoE, hybrid and SSM
+    (tests/test_torch_moe_model.py, tests/test_torch_hybrid_model.py), and
+    the encoder-decoder and VLM (tests/test_torch_encdec_vlm.py), which it
+    refused until it ran them."""
     import dataclasses
     cfg = get_reduced("phi4-mini-3.8b")
     assert Model(get_reduced("qwen3-moe-30b-a3b")).cfg.moe is not None
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        Model(dataclasses.replace(cfg, family="encdec"))
+    encdec = Model(dataclasses.replace(
+        cfg, family="encdec", num_encoder_layers=2, cross_attention=True,
+        frontend="audio", frontend_dim=64))
+    assert all(d.cross for d in encdec.descs)
+    assert set(encdec.cache_init(1, 16, "cpu")) == {"k", "v", "xk", "xv"}
+    vlm = Model(get_reduced("phi-3-vision-4.2b"))
+    assert not any(d.cross for d in vlm.descs)
+    assert set(vlm.cache_init(1, 16, "cpu")) == {"k", "v"}

@@ -17,7 +17,6 @@ Bounds, each with its reason:
 * grad accumulation, remat and restart: the reference's own bounds
   (tests/test_training.py:25-73), restart bit-exact.
 """
-import dataclasses
 
 import numpy as np
 import pytest
@@ -87,14 +86,22 @@ def test_make_batch_bit_identical(step, host):
 
 
 def test_batch_for_model_dense_and_stubs():
+    """The dense batch, and the VLM's patches and the encoder-decoder's
+    frames (the frontend stubs), bit-identical to the reference's."""
     cfg = get_reduced(ARCH)
     ref = jax_data.batch_for_model(jax_reduced(ARCH), SHAPE, 4, seed=3)
     port = batch_for_model(cfg, SHAPE, 4, seed=3, device="cpu")
     assert np.array_equal(port["tokens"].numpy(), np.asarray(ref["tokens"]))
-    for family in ("vlm", "encdec"):
-        with pytest.raises(NotImplementedError, match="VLM"):
-            batch_for_model(dataclasses.replace(cfg, family=family), SHAPE, 0,
-                            device="cpu")
+    for name, stub in (("phi-3-vision-4.2b", "patches"),
+                       ("seamless-m4t-medium", "frames")):
+        ref = jax_data.batch_for_model(jax_reduced(name), SHAPE, 0)
+        port = batch_for_model(get_reduced(name), SHAPE, 0, device="cpu")
+        assert set(port) == set(ref) == {"tokens", stub}
+        assert np.array_equal(port["tokens"].numpy(),
+                              np.asarray(ref["tokens"]))
+        assert port[stub].dtype == torch.bfloat16
+        assert np.array_equal(port[stub].view(torch.int16).numpy(),
+                              np.asarray(ref[stub]).view(np.int16))
 
 
 # ----------------------------------------------------------------- loss ---
