@@ -68,6 +68,16 @@ Phases, each of which fails the run (exit code 1) if it fails:
    prefix resumed or stored; the cached cross attention plain) and walked
    as in phase 4 from a prefill with those inputs; and the VLM's loss at
    S = 2048 (576 patches) with K3 (32 launches) and without.
+12. The lint pass and the q-chunk flag (run after phase 8, on phase 3's
+   model): ``python -m repro_torch.analysis`` over the port's package, its
+   tests, benchmarks and examples and this script must exit 0 with no
+   allowlist, and over each bad fixture (staged under a path its rule
+   scopes) with ``--select`` its code must exit 1 with at least
+   LINT_MIN_BAD findings; one line ``{"lint": {...}}``.  Then one prompt
+   pass of 1,041 tokens at the default query block (1,024) and with
+   ``runtime_flags.Q_CHUNK_OVERRIDE`` at 256 and 2048, in bf16 (timed,
+   distances printed) and with fp32 compute (last logits within 2e-3 of
+   the default's); the flags are restored.
 
 It prints one JSON line of kernel records, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -1257,6 +1267,182 @@ def phase_multimodal(torch, F, counters, gpu):
     return [k1_vlm, k1_encdec, k3_vlm]
 
 
+# ------------------------------------------------------------ phase 12 ---
+
+# what the port's lint pass checks: its package, its tests, benchmarks and
+# examples, and this script
+LINT_PATHS = ("src/repro_torch", "tests/test_torch_*.py",
+              "benchmarks/bench_torch_*.py", "examples/torch_*.py",
+              "chip_smoke.py")
+# findings each bad fixture must give under its own rule: the reference's
+# minima for the rules it shares, one per finding shape for the others
+LINT_MIN_BAD = {"RA001": 4, "RA002": 3, "RA003": 5, "RA004": 4, "RA005": 8,
+                "RA006": 3, "RA007": 3, "RA008": 1, "RA009": 3, "RA010": 4,
+                "RA011": 5}
+LINT_FIXTURES = ROOT / "src" / "repro_torch" / "analysis" / "fixtures"
+QCHUNK_PROMPT = 1041       # > 1024: 2 query blocks by default, 5 of 256, 1
+QCHUNK_OVERRIDES = (None, 256, 2048)
+PROMPT_TOL = 2e-3          # rtol and atol (tests/test_engine_batching.py:88)
+
+
+def lint_paths_here():
+    """LINT_PATHS with their globs expanded, relative to the repo root."""
+    out = []
+    for pattern in LINT_PATHS:
+        out += sorted(str(p.relative_to(ROOT)) for p in ROOT.glob(pattern))
+    return out
+
+
+def stage_bad_fixtures(stage: Path):
+    """Each bad fixture (``.py.txt``, which no tree walk takes) copied to a
+    ``.py`` path under ``stage`` that its rule scopes: RA009's as an
+    event-clock module, the rest under the port's fixture directory.
+    Returns {code: path}."""
+    out = {}
+    for code in sorted(LINT_MIN_BAD):
+        rel = ("serving/simulator.py" if code == "RA009"
+               else f"analysis/fixtures/{code.lower()}_bad.py")
+        dst = stage / code / "src" / "repro_torch" / rel
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        dst.write_text((LINT_FIXTURES / f"{code.lower()}_bad.py.txt")
+                       .read_text())
+        out[code] = dst
+    return out
+
+
+def lint_cli(*args):
+    """``python -m repro_torch.analysis *args`` from the repo root, started
+    (not waited for)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", *args], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def phase_lint():
+    """The port's lint pass from its CLI: exit 0 over LINT_PATHS with no
+    allowlist, and exit 1 with at least LINT_MIN_BAD findings on each bad
+    fixture under ``--select`` its code, all processes started at once."""
+    import shutil
+
+    from repro_torch.analysis.lint import RULES, iter_python_files
+
+    check(sorted(r.code for r in RULES) == sorted(LINT_MIN_BAD),
+          f"lint rules {[r.code for r in RULES]}")
+    paths = lint_paths_here()
+    n_files = len(iter_python_files([str(ROOT / p) for p in paths]))
+    stage = ROOT / "build" / "lint_fixtures"
+    shutil.rmtree(stage, ignore_errors=True)
+    staged = stage_bad_fixtures(stage)
+    t0 = time.perf_counter()
+    tree = lint_cli(*paths)
+    bad = {code: lint_cli("--select", code, str(path))
+           for code, path in staged.items()}
+    out, _ = tree.communicate(timeout=600)
+    seconds = time.perf_counter() - t0
+    check(tree.returncode == 0, f"lint: exit {tree.returncode} over the "
+          f"port's tree:\n{out}")
+    counts = {}
+    for code, proc in bad.items():
+        text, _ = proc.communicate(timeout=600)
+        counts[code] = sum(f": {code} " in line for line in text.splitlines())
+        check(proc.returncode == 1 and counts[code] >= LINT_MIN_BAD[code],
+              f"lint {code} bad fixture: exit {proc.returncode}, "
+              f"{counts[code]} findings (need >= {LINT_MIN_BAD[code]}):\n"
+              f"{text}")
+    shutil.rmtree(stage, ignore_errors=True)
+    print(json.dumps({"lint": {"files": n_files, "rules": len(RULES),
+                               "findings": 0, "seconds": seconds,
+                               "bad_fixture_findings": counts}}))
+
+
+def phase_q_chunk(torch, model, params, cfg, gpu):
+    """One prompt pass of QCHUNK_PROMPT tokens on the full model at the
+    default query block (Q_CHUNK = 1024) and with
+    ``runtime_flags.Q_CHUNK_OVERRIDE`` at 256 and 2048 (restored after),
+    first as served (bf16 compute): each pass's CUDA-event ms (stream
+    time, so the host's gaps between launches count), peak memory and
+    distance to the default's last logits; then with ``COMPUTE_DTYPE`` at fp32 (restored
+    after), where the passes must agree within PROMPT_TOL.  In bf16 a
+    1,041-row block runs other GEMM tilings than 1,024- or 256-row ones,
+    and 32 layers of random weights carry the last-bit differences to the
+    logits, so the bf16 distances are printed, not bounded."""
+    from repro_torch.models import layers
+    from repro_torch.models import runtime_flags as flags
+
+    toks = torch.tensor([template_prompt(5, QCHUNK_PROMPT, cfg.vocab_size)],
+                        dtype=torch.long, device="cuda")
+
+    def prompt_pass(chunk):
+        flags.Q_CHUNK_OVERRIDE = chunk
+        with torch.no_grad():
+            model.prefill(params, {"tokens": toks})           # warm-up
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, caches = model.prefill(params, {"tokens": toks})
+            end.record()
+            torch.cuda.synchronize()
+        del caches
+        peak = torch.cuda.max_memory_allocated()
+        check(bool(torch.isfinite(logits).all()), f"q_chunk {chunk}: "
+              f"logits not finite")
+        return (logits.float(), start.elapsed_time(end),
+                (peak - base) / 2**30, peak / 2**30)
+
+    prev, dtype = flags.Q_CHUNK_OVERRIDE, layers.COMPUTE_DTYPE
+    runs = {}
+    try:
+        for compute in (torch.bfloat16, torch.float32):
+            layers.COMPUTE_DTYPE = compute
+            for chunk in QCHUNK_OVERRIDES:
+                runs[compute, chunk] = prompt_pass(chunk)
+    finally:
+        flags.Q_CHUNK_OVERRIDE, layers.COMPUTE_DTYPE = prev, dtype
+    check(flags.Q_CHUNK_OVERRIDE == prev and layers.COMPUTE_DTYPE == dtype,
+          "Q_CHUNK_OVERRIDE or COMPUTE_DTYPE not restored")
+    # where the bf16 distance starts: one layer's attention at this shape,
+    # one 1,041-row block against blocks of 1,024 and 17 rows
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, k, v = (torch.randn((1, QCHUNK_PROMPT, n, hd), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for n in (h, kh, kh))
+    pos = torch.arange(QCHUNK_PROMPT, device="cuda")[None]
+    one, two, fp32 = (layers._sdpa_chunked(*t, pos, h // kh, kind="causal",
+                                           q_chunk=c)
+                      for t, c in (((q, k, v), 2048), ((q, k, v), 1024),
+                                   ((q.float(), k.float(), v.float()), 2048)))
+    diff = (one.float() - two.float()).abs()
+    print(f"q_chunk: one layer's attention (bf16, H={h}, K={kh}, hd={hd}): "
+          f"1 block against 2 differs in {int((diff > 0).sum())} of "
+          f"{diff.numel()} outputs, by at most {float(diff.max()):.4g}; "
+          f"each is {float((one.float() - fp32).abs().max()):.4g} / "
+          f"{float((two.float() - fp32).abs().max()):.4g} from fp32")
+    for (compute, chunk), (got, ms, extra, peak) in runs.items():
+        want = runs[compute, None][0]
+        block = chunk or layers.Q_CHUNK
+        err = float((got - want).abs().max())
+        name = str(compute).split(".")[-1]
+        if compute == torch.float32:
+            check(bool(((got - want).abs()
+                        <= PROMPT_TOL + PROMPT_TOL * want.abs()).all()),
+                  f"q_chunk {block} ({name}): last logits differ from the "
+                  f"default's by {err:.4g} (rtol = atol = {PROMPT_TOL})")
+        spread = float(want.max() - want.min())
+        bound = (f"bound {PROMPT_TOL}" if compute == torch.float32
+                 else "not bounded")
+        print(f"q_chunk {block} ({-(-QCHUNK_PROMPT // block)} query blocks; "
+              f"override {chunk}) {name}: prompt pass {QCHUNK_PROMPT} tokens "
+              f"{cfg.name} {ms:.2f} ms (CUDA events), peak {peak:.3f} GiB "
+              f"({extra:.3f} GiB over what was held), max |logit - default| "
+              f"{err:.4g} ({err / spread:.4g} x spread; {bound}) [{gpu}]")
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -1311,6 +1497,11 @@ def main() -> int:
     phase_scenarios(torch, model, params, counters)
     print(f"phase 8: scenario backends agree ({time.perf_counter() - t0:.1f}"
           f" s)")
+    t0 = time.perf_counter()
+    phase_lint()
+    phase_q_chunk(torch, model, params, cfg, gpu)
+    print(f"phase 12: lint pass and q-chunk flag "
+          f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     records.append(phase_flash(torch, F))
     print(f"phase 5: flash kernel agrees with its plain version "

@@ -41,12 +41,14 @@ from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import (gather_pages,
                                                      paged_attention)
+from repro_torch.models import runtime_flags as flags
 
 COMPUTE_DTYPE = torch.bfloat16
 NEG_INF = -1e30
 
 # Queries are processed in blocks of this length so the (S x T) score matrix
-# is never fully materialised (reference layers.py:103).
+# is never fully materialised (reference layers.py:103);
+# ``runtime_flags.Q_CHUNK_OVERRIDE`` replaces it when set.
 Q_CHUNK = 1024
 
 
@@ -131,11 +133,14 @@ def _sdpa(q, k, v, mask, q_per_kv):
 
 
 def _sdpa_chunked(q, k, v, qpos, q_per_kv, *, kind, kv_lengths=None,
-                  q_chunk=Q_CHUNK):
+                  q_chunk=None):
     """Memory-bounded attention, ``q_chunk`` queries at a time (reference
-    layers.py:106-137).  kind: ``'causal'`` (kv_pos <= q_pos), ``'full'``
-    (no mask) or ``'length'`` (kv_pos < kv_lengths, unmasked without
-    ``kv_lengths``).  qpos: (B,S) int query positions; kv_lengths: (B,)."""
+    layers.py:106-137); without ``q_chunk``, ``Q_CHUNK_OVERRIDE or
+    Q_CHUNK``, read at call time.  kind: ``'causal'`` (kv_pos <= q_pos),
+    ``'full'`` (no mask) or ``'length'`` (kv_pos < kv_lengths, unmasked
+    without ``kv_lengths``).  qpos: (B,S) int query positions; kv_lengths: (B,)."""
+    if q_chunk is None:
+        q_chunk = flags.Q_CHUNK_OVERRIDE or Q_CHUNK
     s = q.shape[1]
     kv_pos = torch.arange(k.shape[1], device=q.device)
 

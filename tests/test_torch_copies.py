@@ -34,6 +34,7 @@ COPIES = [
     "configs/jamba_v0_1_52b.py", "configs/xlstm_125m.py",
     "configs/seamless_m4t_medium.py", "configs/phi_3_vision_4_2b.py",
     "configs/__init__.py",
+    "models/runtime_flags.py",
 ]
 
 
@@ -58,7 +59,7 @@ def _tree(path):
 
 
 def test_copy_list():
-    assert len(COPIES) == len(set(COPIES)) == 32
+    assert len(COPIES) == len(set(COPIES)) == 33
 
 
 @pytest.mark.parametrize("rel", COPIES)
