@@ -78,6 +78,18 @@ Phases, each of which fails the run (exit code 1) if it fails:
    ``runtime_flags.Q_CHUNK_OVERRIDE`` at 256 and 2048, in bf16 (timed,
    distances printed) and with fp32 compute (last logits within 2e-3 of
    the default's); the flags are restored.
+13. The sharding layer (run after phase 12, on phase 3's model): a
+   one-rank NCCL world from a ``FileStore`` in a temporary directory, a
+   (1, 1) ("data", "model") mesh from ``make_test_mesh``, and the params
+   distributed by ``param_shardings``.  Phase 4's forced walk (624-token
+   prompt, 16 steps, ``"pallas"``) runs under ``use_policy`` on the
+   DTensor params and without it on the plain ones, fed the same tokens:
+   max|dlogits| within WALK_BOUND x spread, and K1 launched on local
+   shards exactly once per attention layer and step (32 x 16 = 512).
+   ``compressed_psum`` over the NCCL group on two layers' fp32 gradients
+   must equal ``compress_grads`` bit for bit.  The prompt pass is timed
+   with and without the policy (DTensor's host cost); the process group
+   is destroyed before the next phase.
 
 It prints one JSON line of kernel records, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -86,6 +98,7 @@ printing any result.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import re
@@ -1443,6 +1456,233 @@ def phase_q_chunk(torch, model, params, cfg, gpu):
               f"{err:.4g} ({err / spread:.4g} x spread; {bound}) [{gpu}]")
 
 
+# ------------------------------------------------------------ phase 13 ---
+
+SHARD_PROMPT, SHARD_STEPS = 624, 16      # phase 4's walk
+SHARD_GRAD_TOKENS = 256                  # the compressed gradients' batch
+
+
+def phase_sharded(torch, F, model, params, cfg, gpu, counters):
+    """Phase 13 (module docstring).  Returns the ``kernels`` record of K1
+    on the policy walk's local shards: held against its plain version and
+    timed on the inputs of the walk's last call, with its launches."""
+    import contextlib
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.sharding import ShardingPolicy, use_policy
+    from repro_torch.sharding.specs import device_put, param_shardings
+    from repro_torch.training.compression import (compress_grads,
+                                                  compressed_psum,
+                                                  init_error_feedback)
+
+    toks = torch.tensor([template_prompt(0, SHARD_PROMPT, cfg.vocab_size)],
+                        dtype=torch.long, device="cuda")
+
+    def prompt_ms(p, ctx):
+        with torch.no_grad(), ctx():
+            model.prefill(p, {"tokens": toks})                # warm-up
+            times = []
+            for _ in range(3):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                model.prefill(p, {"tokens": toks})
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+        return times
+
+    def walk(p, ctx, feed=None):
+        """16 decode steps from one prefill; each step takes ``feed[i]``,
+        or its own argmax.  Returns (logits per step, tokens fed)."""
+        out, fed = [], []
+        with torch.no_grad(), ctx():
+            logits, caches = model.prefill(p, {"tokens": toks},
+                                           max_len=MAX_LEN)
+            tok = int(_local(logits).argmax())
+            for i in range(SHARD_STEPS):
+                tok = tok if feed is None else feed[i]
+                fed.append(tok)
+                arr = torch.full((1, 1), tok, dtype=torch.int32,
+                                 device="cuda")
+                logits, caches = model.decode(p, caches, arr,
+                                              SHARD_PROMPT + i,
+                                              decode_impl="pallas")
+                logits = _local(logits).float()
+                out.append(logits)
+                tok = int(logits.argmax())
+        return out, fed
+
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0,
+                                device_id=torch.device("cuda", 0))
+        try:
+            mesh = make_test_mesh((1, 1))
+            policy = ShardingPolicy(mesh)
+            sharded = device_put(params, param_shardings(params, policy))
+            under = functools.partial(use_policy, policy)
+            plain_logits, fed = walk(params, contextlib.nullcontext)
+            seen = []
+
+            def spy(*args):
+                seen[:] = [a.clone() for a in args]    # the last call's
+                return dops.decode_attention(*args)
+            for fn in counters:
+                fn.launches = 0
+            L.decode_attention = spy
+            try:
+                shard_logits, _ = walk(sharded, under, feed=fed)
+            finally:
+                L.decode_attention = dops.decode_attention
+            launches = {fn.__name__: fn.launches for fn in counters}
+            k1 = launches["decode_attention"]
+            want = model.mixers.count("attn") * SHARD_STEPS
+            check(launches == {"decode_attention": want,
+                               "paged_attention": 0, "flash_attention": 0},
+                  f"phase 13: launches {launches} under the policy, "
+                  f"expected {want} of K1 and no other kernel")
+            check(all(type(a) is torch.Tensor for a in seen),
+                  "phase 13: K1 took a DTensor")
+            worst = ratio = 0.0
+            for step, (a, b) in enumerate(zip(shard_logits, plain_logits)):
+                check(bool(torch.isfinite(a).all()),
+                      f"phase 13 step {step}: non-finite logits")
+                spread = float(b.max() - b.min())
+                diff = float((a - b).abs().max())
+                check(diff <= WALK_BOUND * spread,
+                      f"phase 13 step {step}: {diff:.4g} > {WALK_BOUND} x "
+                      f"spread {spread:.4g}")
+                worst, ratio = max(worst, diff), max(ratio, diff / spread)
+            print(f"phase 13 walk {cfg.name}: {SHARD_STEPS} steps "
+                  f"\"pallas\" from position {SHARD_PROMPT} under a "
+                  f"{tuple(mesh.mesh.shape)} mesh policy against the plain "
+                  f"params: max|dlogits| {worst:.4g} ({ratio:.4g} x spread; "
+                  f"bound {WALK_BOUND}); {k1} K1 launches on local shards "
+                  f"(= {want // SHARD_STEPS} layers x {SHARD_STEPS})")
+            plain_ms = prompt_ms(params, contextlib.nullcontext)
+            shard_ms = prompt_ms(sharded, under)
+            print(f"phase 13 prompt pass {SHARD_PROMPT} tokens {cfg.name} "
+                  f"(CUDA events, 3 each): plain "
+                  f"{', '.join(f'{t:.2f}' for t in plain_ms)} ms, under the "
+                  f"policy {', '.join(f'{t:.2f}' for t in shard_ms)} ms "
+                  f"[{gpu}]")
+            del sharded
+            record = hold_local_k1(torch, F, seen, k1)
+            # two layers' fp32 gradients of a short loss
+            leaves = list(_leaves(params["layers"][:2]))
+            for t in leaves:
+                t.requires_grad_(True)
+            try:
+                loss = model.train_loss(
+                    params, {"tokens": toks[:, :SHARD_GRAD_TOKENS]})
+                grads = [g.float() for g in torch.autograd.grad(loss, leaves)]
+            finally:
+                for t in leaves:
+                    t.requires_grad_(False)
+            err = init_error_feedback(grads)
+            got, got_err = compressed_psum(grads, None, err)
+            comp, comp_err = compress_grads(grads, err)
+            same = all(torch.equal(a, b) for a, b in
+                       zip(got + got_err, comp + comp_err))
+            check(same, "phase 13: compressed_psum over the one-rank NCCL "
+                  "group differs from compress_grads")
+            print(f"phase 13 compressed_psum: {len(grads)} fp32 gradient "
+                  f"leaves of 2 layers ({sum(g.numel() for g in grads)} "
+                  f"values) over the NCCL group equal compress_grads bit "
+                  f"for bit")
+        finally:
+            dist.destroy_process_group()
+    check(not dist.is_initialized(), "phase 13: process group left open")
+    paper_topologies()
+    return record
+
+
+def hold_local_k1(torch, F, args, launches):
+    """K1 against its plain version on the local shards of the policy
+    walk's last call (``args``: q, k, v, lengths), then timed on 16 copies
+    of them (together past the L2) beside its plain version and
+    ``scaled_dot_product_attention``."""
+    from repro_torch.kernels.decode_attention import ops as dops
+
+    q, k, v, lengths = args
+    err = max_err(torch, dops.decode_attention(q, k, v, lengths),
+                  dops.decode_attention_plain(q, k, v, lengths), q.dtype)
+    b, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    sets = [tuple(a.clone() for a in args) for _ in range(16)]
+    mask = (torch.arange(t, device="cuda")[None, None, None, :]
+            < lengths[:, None, None, None])
+    lib_sets = [(sq[:, :, None], sk.transpose(1, 2), sv.transpose(1, 2), mask)
+                for sq, sk, sv, _ in sets]
+    sdpa = lambda q, k, v, m: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=m, enable_gqa=True)
+    valid = int(lengths.sum())
+    item = q.element_size()
+    bytes_ms = (valid * kh * hd * 2 * item + 2 * b * h * hd * item
+                + 4 * b) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * h * hd * valid / FP32_FLOPS_PER_S * 1e3
+    rec = dict(name="decode_attention_sharded", route="cuda",
+               source=SOURCES["decode_attention"],
+               replaces=REPLACES["decode_attention"], launches=launches,
+               max_abs_err=err,
+               ms=time_ms(torch, dops.decode_attention, sets),
+               plain_ms=time_ms(torch, dops.decode_attention_plain, sets),
+               bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               library_ms=time_ms(torch, sdpa, lib_sets))
+    print(f"{rec['name']}: kernel {rec['ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), plain "
+          f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, "
+          f"max err {err:.3g} ({q.dtype}, local shards B={b}, T={t}, H={h}, "
+          f"K={kh}, hd={hd}, lengths {lengths.tolist()}), {launches} "
+          f"launches")
+    return rec
+
+
+# the paper's tensor-parallel degrees for its own models, as spec tables
+# over a stub mesh (one card cannot hold them)
+PAPER_TP = {"llama-3.1-70b": 4, "nemotron-4-340b": 8}
+
+
+class _StubMesh:
+    """A mesh's axis names and shape: all a sharding policy reads."""
+    def __init__(self, shape, names=("data", "model")):
+        import numpy as np
+        self.mesh = np.empty(shape, dtype=object)
+        self.mesh_dim_names = names
+
+
+def paper_topologies():
+    """Bytes a device of each paper model's bf16 params (``init_abstract``
+    on the meta device) under ``param_shardings`` at (1, TP)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.sharding import ShardingPolicy
+    from repro_torch.sharding.specs import bytes_per_device, param_shardings
+
+    for arch, tp in PAPER_TP.items():
+        params = Model(get_config(arch)).init_abstract(torch.bfloat16)
+        total = sum(t.numel() * t.element_size() for t in _leaves(params))
+        per = bytes_per_device(params, param_shardings(
+            params, ShardingPolicy(_StubMesh((1, tp)))))
+        check(total / tp <= per < 1.01 * total / tp,
+              f"{arch}: {per} bytes a device of {total} at TP = {tp}")
+        print(f"phase 13 {arch} at (data, model) = (1, {tp}): {total} bytes "
+              f"of bf16 params, {per} bytes a device "
+              f"({per / 2**30:.3f} GiB; spec tables on meta tensors)")
+
+
+def _local(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -1502,6 +1742,11 @@ def main() -> int:
     phase_q_chunk(torch, model, params, cfg, gpu)
     print(f"phase 12: lint pass and q-chunk flag "
           f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    records.append(phase_sharded(torch, F, model, params, cfg, gpu,
+                                 counters))
+    print(f"phase 13: sharded walk and compressed all-reduce on a one-rank "
+          f"mesh ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     records.append(phase_flash(torch, F))
     print(f"phase 5: flash kernel agrees with its plain version "

@@ -26,6 +26,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import build
 
@@ -52,6 +53,15 @@ def decode_attention_plain(q, k, v, lengths):
     out = torch.einsum("bkgt,btkh->bkgh", probs, v.float())
     out = torch.where(lengths[:, None, None, None] > 0, out, 0.0)
     return out.reshape(b, h, hd).to(q.dtype)
+
+
+def reject_dtensor(name, *tensors):
+    """Raise for a ``DTensor``: a kernel takes each rank's local shards
+    (the model hands them over, ``models.layers._on_local_shards``) and
+    has no distributed form, plain version included."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name}: got a DTensor; pass each rank's local "
+                        f"shard")
 
 
 def check_cuda_inputs(name, tensors, *, dtype, int_tensors=()):
@@ -157,6 +167,7 @@ def decode_attention(q, k, v, lengths):
     and its combine counters are the device's shared buffer.  Lengths are
     clamped to [0, T]; rows with ``length == 0`` return zeros (inactive
     serving slots)."""
+    reject_dtensor("decode_attention", q, k, v, lengths)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths)
     if q.device.type != "cuda":

@@ -29,7 +29,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ops import (check_cuda_inputs,
-                                                      raise_on_launch_error)
+                                                      raise_on_launch_error,
+                                                      reject_dtensor)
 
 HEAD_DIMS = (32, 64, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,6 +83,7 @@ def flash_attention(q, k, v, *, causal=True):
     if t < s:
         raise ValueError(f"flash_attention: {t} keys for {s} queries; the "
                          f"kernel needs T >= S")
+    reject_dtensor("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":

@@ -28,7 +28,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ops import (
     _DTYPES, SplitPlan, _counters, check_cuda_inputs, check_shape,
-    decode_attention_plain, raise_on_launch_error)
+    decode_attention_plain, raise_on_launch_error, reject_dtensor)
 
 
 def gather_pages(pool, page_table):
@@ -98,6 +98,7 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths):
     A CPU tensor takes :func:`paged_attention_plain`; a CUDA tensor
     launches the kernel or raises.  Table entries are clamped to [0, N-1]
     and lengths to [0, W * block]; rows with ``length == 0`` return zeros."""
+    reject_dtensor("paged_attention", q, k_pool, v_pool, page_table, lengths)
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, page_table, lengths)
     if q.device.type != "cuda":

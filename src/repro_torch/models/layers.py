@@ -28,6 +28,14 @@ decoder's cross attention (``kv_source``, no RoPE) always take the plain
 reference.
 
 On a CPU tensor the kernel wrappers run their plain PyTorch versions.
+
+Under a sharding policy (``repro_torch.sharding``) the parameters and
+caches are ``DTensor``s on a ``DeviceMesh`` and :func:`shard` redistributes
+the activations at the reference's sites; with no policy it returns its
+input and the layers compute on plain tensors.  Attention itself, the
+kernels and the plain ``_sdpa_chunked`` alike, runs on each rank's local
+shards (:func:`on_local_shards`): batch over the data axes, heads over
+``model`` where the KV heads divide it, else whole heads.
 """
 from __future__ import annotations
 
@@ -36,6 +44,10 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.sharding import shard
+from repro_torch.sharding.policy import mesh_sizes
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -162,8 +174,83 @@ def _sdpa_chunked(q, k, v, qpos, q_per_kv, *, kind, kv_lengths=None,
 
 
 def _project_out(out, params):
-    return torch.einsum("bshk,hkd->bsd", out,
-                        params["wo"].to(COMPUTE_DTYPE))
+    """The output projection and its sharding site, the one the reference
+    takes after each of its four (layers.py:225, 265, 274, 282)."""
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(COMPUTE_DTYPE))
+    return shard(out, "batch", "seq", "act_embed")
+
+
+_DATA_AXES = ("pod", "data")
+
+
+def on_local_shards(fn, args, outs, *, heads):
+    """``fn(*tensors)`` for a computation that is independent per batch
+    row and head (attention, the Mamba scan).  ``args`` are (tensor, batch
+    dim, head dim) with ``None`` for a dim the tensor lacks; ``outs`` the
+    (batch dim, head dim) of each output (a tuple of them for a tuple).
+    With no ``DTensor`` among the args, the call itself.  Else each rank
+    calls ``fn`` on its local shards, contiguous, and the outputs form
+    DTensors again: batch over the data axes where it divides them, and
+    every head dim over ``model`` where ``heads`` (the count that must
+    split evenly: the KV heads of a GQA attention) divides it, so each
+    rank's query groups stay with their KV head and the local call is
+    exact.  Where it does not divide, the tensors laid out on head_dim
+    (``kv_head_dim``) are gathered over ``model`` here and every rank of it
+    computes all heads.  Plain tensors among the args (positions, lengths)
+    hold the same value on every rank and are split like the others."""
+    mesh = next((t.device_mesh for t, _, _ in args
+                 if isinstance(t, DTensor)), None)
+    if mesh is None:
+        return fn(*(t for t, _, _ in args))
+    sizes = mesh_sizes(mesh)
+    data = math.prod(sizes.get(a, 1) for a in _DATA_AXES)
+    batch = next(t.shape[b] for t, b, _ in args if b is not None)
+    by_batch = batch % data == 0
+    by_heads = heads % sizes.get("model", 1) == 0
+
+    def split(axis, batch_dim, head_dim):
+        """What splits the computation over ``axis``: the tensor's own dim
+        there, or None where the tensor is whole but the work is split."""
+        if axis in _DATA_AXES and by_batch:
+            return batch_dim
+        return head_dim if axis == "model" and by_heads else ()
+
+    def layout(batch_dim, head_dim):
+        return [Replicate() if split(a, batch_dim, head_dim) in ((), None)
+                else Shard(split(a, batch_dim, head_dim))
+                for a in mesh.mesh_dim_names]
+
+    def local(x, batch_dim, head_dim):
+        if not isinstance(x, DTensor):
+            x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        place = layout(batch_dim, head_dim)
+        # a tensor whole on an axis that splits the work (A_log over the
+        # data shards, the Mamba's B and C over the heads) gets a partial
+        # gradient from each rank there
+        grad = [Partial() if split(a, batch_dim, head_dim) is None else p
+                for a, p in zip(mesh.mesh_dim_names, place)]
+        return x.redistribute(mesh, place).to_local(
+            grad_placements=grad).contiguous()
+
+    out = fn(*(local(t, b, h) for t, b, h in args))
+    if isinstance(outs[0], int):
+        return DTensor.from_local(out, mesh, layout(*outs), run_check=False)
+    return tuple(DTensor.from_local(o, mesh, layout(*d), run_check=False)
+                 for o, d in zip(out, outs))
+
+
+def _attend_local(fn, q, kvs, rows=(), *, kv_batch=True):
+    """``fn(q, *kvs, *rows)`` on local shards (:func:`on_local_shards`):
+    q (B, ..., H, hd) and K/V (..., K, hd) by their heads at dim -2, K/V by
+    batch too unless ``kv_batch`` is False (a paged pool, which each rank
+    takes whole), ``rows`` (positions, lengths, page table) by batch; the
+    output is shaped like q."""
+    hq = q.dim() - 2
+    args = [(q, 0, hq),
+            *((t, 0 if kv_batch else None, t.dim() - 2) for t in kvs),
+            *((r, 0, None) for r in rows)]
+    return on_local_shards(fn, args, (0, hq), heads=kvs[0].shape[-2])
 
 
 def attention(params, x, cfg, *, positions=None, kv_cache=None,
@@ -201,6 +288,7 @@ def attention(params, x, cfg, *, positions=None, kv_cache=None,
     g = cfg.q_heads_per_kv
     xn = rmsnorm(params["norm"], x, cfg.norm_eps)
     q = torch.einsum("bsd,dhk->bshk", xn, params["wq"].to(COMPUTE_DTYPE))
+    q = shard(q, "batch", "seq", "heads", "head_dim")
     src = xn if kv_source is None else kv_source.to(xn.dtype)
     k = torch.einsum("bsd,dhk->bshk", src, params["wk"].to(COMPUTE_DTYPE))
     v = torch.einsum("bsd,dhk->bshk", src, params["wv"].to(COMPUTE_DTYPE))
@@ -219,6 +307,8 @@ def attention(params, x, cfg, *, positions=None, kv_cache=None,
             raise ValueError("paged decode handles single-token steps only")
         if page_table is None:
             raise ValueError(f"decode_impl={decode_impl!r} needs a page_table")
+        k = shard(k, "decode_batch", None, "kv_heads", "kv_head_dim")
+        v = shard(v, "decode_batch", None, "kv_heads", "kv_head_dim")
         ck, cv = kv_cache["k"], kv_cache["v"]
         block = ck.shape[1]
         table = page_table.to(device=x.device, dtype=torch.int32)
@@ -232,8 +322,9 @@ def attention(params, x, cfg, *, positions=None, kv_cache=None,
         cv[page, off] = v[:, 0].to(cv.dtype)
         lengths = qp[:, 0] + 1
         if decode_impl == "paged":
-            out = paged_attention(q[:, 0].contiguous(), ck, cv, table,
-                                  lengths)[:, None]
+            out = _attend_local(
+                lambda q1, *a: paged_attention(q1.contiguous(), *a), q[:, 0],
+                (ck, cv), (table, lengths), kv_batch=False)[:, None]
         else:
             kd = gather_pages(ck, table).to(COMPUTE_DTYPE)
             vd = gather_pages(cv, table).to(COMPUTE_DTYPE)
@@ -246,14 +337,21 @@ def attention(params, x, cfg, *, positions=None, kv_cache=None,
         elif not causal:
             kind = "full"
         elif use_flash and s == k.shape[1] and s % 128 == 0:
-            out = flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=True)
+            out = _attend_local(
+                lambda *a: flash_attention(*(t.contiguous() for t in a),
+                                           causal=True), q, (k, v))
             return _project_out(out, params), None
         else:
             kind = "causal"
-        out = _sdpa_chunked(q, k, v, qp, g, kind=kind, kv_lengths=kv_lengths)
+        lens = () if kv_lengths is None else (kv_lengths,)
+        out = _attend_local(
+            lambda q1, k1, v1, p1, *n: _sdpa_chunked(
+                q1, k1, v1, p1, g, kind=kind, kv_lengths=n[0] if n else None),
+            q, (k, v), (qp, *lens))
         return _project_out(out, params), None
 
+    k = shard(k, "decode_batch", None, "kv_heads", "kv_head_dim")
+    v = shard(v, "decode_batch", None, "kv_heads", "kv_head_dim")
     ck, cv = kv_cache["k"], kv_cache["v"]
     t = ck.shape[1]
     widx = 0 if write_index is None else write_index
@@ -261,11 +359,21 @@ def attention(params, x, cfg, *, positions=None, kv_cache=None,
         if s != 1:
             raise ValueError("a (B,) write_index needs single-token steps")
         widx = widx.to(device=x.device, dtype=torch.long)
-        rows = torch.arange(b, device=x.device)
-        inside = ((widx >= 0) & (widx < t))[:, None, None]
-        at = widx.clamp(0, t - 1)
-        ck[rows, at] = torch.where(inside, k[:, 0].to(ck.dtype), ck[rows, at])
-        cv[rows, at] = torch.where(inside, v[:, 0].to(cv.dtype), cv[rows, at])
+        if isinstance(ck, DTensor):
+            # a DTensor takes no index_put_ with a plain index: write as
+            # the reference does, a select over T (layers.py:215-219)
+            sel = (torch.arange(t, device=x.device)[None, :, None, None]
+                   == widx[:, None, None, None])
+            ck.copy_(torch.where(sel, k.to(ck.dtype), ck))
+            cv.copy_(torch.where(sel, v.to(cv.dtype), cv))
+        else:
+            rows = torch.arange(b, device=x.device)
+            inside = ((widx >= 0) & (widx < t))[:, None, None]
+            at = widx.clamp(0, t - 1)
+            ck[rows, at] = torch.where(inside, k[:, 0].to(ck.dtype),
+                                       ck[rows, at])
+            cv[rows, at] = torch.where(inside, v[:, 0].to(cv.dtype),
+                                       cv[rows, at])
     else:
         start = min(max(int(widx), 0), t - s)
         ck[:, start:start + s] = k.to(ck.dtype)
@@ -273,11 +381,14 @@ def attention(params, x, cfg, *, positions=None, kv_cache=None,
 
     if decode_impl == "pallas" and s == 1:
         lengths = qp[:, 0] + 1
-        out = decode_attention(q[:, 0].contiguous(), ck, cv, lengths)[:, None]
+        out = _attend_local(
+            lambda q1, *a: decode_attention(q1.contiguous(), *a), q[:, 0],
+            (ck, cv), (lengths,))[:, None]
         return _project_out(out, params), kv_cache
 
-    out = _sdpa_chunked(q, ck.to(COMPUTE_DTYPE), cv.to(COMPUTE_DTYPE), qp, g,
-                        kind="causal")
+    out = _attend_local(
+        lambda q1, k1, v1, p1: _sdpa_chunked(q1, k1, v1, p1, g, kind="causal"),
+        q, (ck.to(COMPUTE_DTYPE), cv.to(COMPUTE_DTYPE)), (qp,))
     return _project_out(out, params), kv_cache
 
 
@@ -296,6 +407,7 @@ def mlp_init(generator, cfg, dtype, device):
 def mlp(params, x, cfg):
     xn = rmsnorm(params["norm"], x, cfg.norm_eps)
     h = torch.einsum("bsd,df->bsf", xn, params["wu"].to(COMPUTE_DTYPE))
+    h = shard(h, "batch", "seq", "act_mlp")
     if cfg.activation == "swiglu":
         gate = torch.einsum("bsd,df->bsf", xn,
                             params["wg"].to(COMPUTE_DTYPE))
@@ -304,4 +416,5 @@ def mlp(params, x, cfg):
         h = torch.square(F.relu(h))
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
-    return torch.einsum("bsf,fd->bsd", h, params["wd"].to(COMPUTE_DTYPE))
+    out = torch.einsum("bsf,fd->bsd", h, params["wd"].to(COMPUTE_DTYPE))
+    return shard(out, "batch", "seq", "act_embed")

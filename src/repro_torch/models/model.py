@@ -35,6 +35,12 @@ are the reference's stacked K/V.  A Python loop over the layers replaces
 single-token step only for S == 1 with a cache; any longer pass recomputes
 its state from the window and writes the final state into the cache.
 
+Under a sharding policy over a ``DeviceMesh`` (``repro_torch.sharding``;
+the caller distributes the params by ``param_shardings``), ``cache_init``
+distributes the caches by ``cache_shardings``, and the reference's shard
+sites (model.py:243, 271, 385, 435, 480, 544) redistribute the embedded
+inputs and the loss's logits.
+
 ``prefill``/``prefill_batched``/``prefill_resume`` return fresh caches and
 leave their inputs as they were; ``decode`` updates ``caches`` in place (the
 reference donates them).  Logits come from a bf16 product with ``unembed``
@@ -50,6 +56,8 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
@@ -57,6 +65,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.sharding import current_policy, shard
+from repro_torch.sharding.specs import cache_shardings, device_put
 
 
 # Deterministic synthetic-shape conventions for enc-dec / VLM cells
@@ -180,6 +190,12 @@ class Model:
             params["enc_final_norm"] = L.rmsnorm_init(d, dtype, dev)
         return params
 
+    def init_abstract(self, dtype=torch.float32):
+        """Every leaf's shape and dtype, allocating nothing: :meth:`init` on
+        the ``meta`` device (the reference's ``jax.eval_shape`` of its init,
+        model.py:135)."""
+        return self.init(None, dtype, torch.device("meta"))
+
     def _block_init(self, generator, desc: BlockDesc, dtype, device):
         cfg = self.cfg
         if desc.mixer == "attn":
@@ -227,7 +243,7 @@ class Model:
                                                 device).items():
                     caches[mixer.prefix + name] = \
                         t.expand(n, *t.shape).clone()
-        return caches
+        return _distribute_caches(caches)
 
     def paged_cache_init(self, num_pages, block, device):
         """Global KV page pools (P, num_pages + 1, block, K, hd), zeros,
@@ -237,7 +253,7 @@ class Model:
         if not self.supports_paged_decode:
             raise ValueError(f"{self.cfg.name}: paged KV needs a pure "
                              f"causal-attention stack")
-        return self._zeros(num_pages + 1, block, device)
+        return _distribute_caches(self._zeros(num_pages + 1, block, device))
 
     def _layer_cache(self, caches, i):
         """Layer i's views of ``caches``, under its block's own names (and
@@ -351,6 +367,7 @@ class Model:
         frames = torch.as_tensor(frames, device=params["embed"].device)
         x = torch.einsum("bsf,fd->bsd", frames.to(dt),
                          params["frontend_proj"].to(dt))
+        x = shard(x, "batch", "seq", "act_embed")
         for lp in params["enc_layers"]:
             x, _ = self._layer(lp, ENC_DESC, x, None, None, None, "sdpa",
                                None, None, causal=False)
@@ -378,7 +395,7 @@ class Model:
                               params["frontend_proj"].to(dt))
             x = torch.cat([pe, x], dim=1)
             offset = pe.shape[1]
-        return x, enc_out, offset
+        return shard(x, "batch", "seq", "act_embed"), enc_out, offset
 
     def _fill_cross_cache(self, params, caches, enc_out):
         """Each cross layer's encoder K and V, cut or zero-padded to the
@@ -444,7 +461,7 @@ class Model:
     def prefill_batched(self, params, tokens, lengths, max_len=None):
         """Ragged prompt batch, each row right-padded to S; row i's logits
         are taken at position ``lengths[i] - 1`` (model.py:366-398)."""
-        x = self._embed(params, tokens)
+        x = shard(self._embed(params, tokens), "batch", "seq", "act_embed")
         b, s = x.shape[0], x.shape[1]
         caches = self.cache_init(b, max_len or s, x.device)
         positions = torch.arange(s, device=x.device)
@@ -466,7 +483,7 @@ class Model:
             raise ValueError(f"{self.cfg.name}: a resumed prompt pass needs "
                              f"every mixer's state in the KV cache")
         caches = {n: t.clone() for n, t in caches.items()}
-        x = self._embed(params, tokens)
+        x = shard(self._embed(params, tokens), "batch", "seq", "act_embed")
         s = x.shape[1]
         start = int(start)
         positions = torch.arange(s, device=x.device) + start
@@ -482,7 +499,8 @@ class Model:
         the CUDA paged kernel over ``caches`` from :meth:`paged_cache_init`
         and ``page_table`` (B, W) int32; ``"sdpa"``/``"paged_sdpa"`` are
         the plain paths.  Returns (logits (B,V) fp32, caches)."""
-        x = self._embed(params, tokens)
+        x = shard(self._embed(params, tokens), "decode_batch", None,
+                  "act_embed")
         b = x.shape[0]
         if isinstance(cur_index, torch.Tensor) and cur_index.dim() == 1:
             cur = cur_index.to(device=x.device, dtype=torch.int32)
@@ -495,6 +513,16 @@ class Model:
                             write_index=cur, decode_impl=decode_impl,
                             page_table=page_table)
         return self._logits(params, x), caches
+
+
+def _distribute_caches(caches):
+    """``caches`` distributed by ``cache_shardings`` under a policy over a
+    ``DeviceMesh``; as they are otherwise (no policy, or a stub mesh that
+    only sizes the MoE's dispatch groups)."""
+    policy = current_policy()
+    if policy is None or not isinstance(policy.mesh, DeviceMesh):
+        return caches
+    return device_put(caches, cache_shardings(caches, policy))
 
 
 LOSS_CHUNK = 512
@@ -516,9 +544,18 @@ def _chunked_ce(x, tgt, unembed, chunk=LOSS_CHUNK):
     w_bf16 = unembed.to(L.COMPUTE_DTYPE)
 
     def block(xb, tb, wb):
-        logits = torch.einsum("bsd,dv->bsv", xb, w_bf16).float()
+        logits = shard(torch.einsum("bsd,dv->bsv", xb, w_bf16),
+                       "batch", "seq", "vocab").float()
         logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, tb[..., None])[..., 0]
+        if isinstance(logits, DTensor):
+            # gather along the sharded vocab has no working DTensor form
+            # (its masked partial fails on 3-D logits); the masked sum keeps
+            # the vocab sharded and picks the same value exactly
+            vocab = torch.arange(logits.shape[-1], device=tb.device)
+            ll = torch.sum(torch.where(vocab == tb[..., None], logits, 0.0),
+                           dim=-1)
+        else:
+            ll = torch.gather(logits, -1, tb[..., None])[..., 0]
         return torch.sum((logz - ll) * wb), torch.sum(wb)
 
     w = torch.ones((b, s), dtype=torch.float32, device=x.device)

@@ -6,8 +6,9 @@ per-head decay matmul, across chunks a small state recurrence.  The mLSTM
 uses the analogous chunked linear-attention form with log-space gate
 stabilisation, and the sLSTM keeps its sequential recurrence over time.
 Where the reference scans (``lax.scan`` over chunks or time), the port runs
-a Python loop; the reference's ``shard(...)`` calls and scan-unroll flag
-have no counterpart on one device and are left out.
+a Python loop; the reference's scan-unroll flag has no counterpart.  Its
+``shard(...)`` sites are kept (ssm.py:145, 167, 329, 409): under a policy
+over a mesh the blocks compute on DTensors (``repro_torch.sharding``).
 
 Dtypes are the reference's: the SSM, mLSTM and sLSTM states, ``dt`` and the
 gates are fp32; the conv state and the projections run in
@@ -24,7 +25,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import COMPUTE_DTYPE, _init, rmsnorm, rmsnorm_init
+from repro_torch.models.layers import (COMPUTE_DTYPE, _init,
+                                       on_local_shards, rmsnorm,
+                                       rmsnorm_init)
+from repro_torch.sharding import shard
 
 
 def _softplus(x):
@@ -149,6 +153,16 @@ def ssd_chunked(x, dt, a_log, b_in, c_in, chunk):
     return y[:, :s0], state
 
 
+def _ssd_step(x, dt, a_log, b_in, c_in, state):
+    """The single-token recurrent step (S == 1): x (B,H,P), dt (B,H),
+    b_in/c_in (B,N), state (B,H,N,P) fp32 -> (y (B,H,P), new state)."""
+    a = torch.exp(-torch.exp(a_log.float()) * dt)                 # (B,H)
+    upd = torch.einsum("bn,bhp->bhnp", b_in.float(),
+                       dt[:, :, None] * x.float())
+    state = state * a[..., None, None] + upd
+    return torch.einsum("bn,bhnp->bhp", c_in.float(), state), state
+
+
 def mamba_block(params, x, cfg, *, cache=None):
     """Mamba-2 SSD block. x: (B,S,D). cache: dict(ssm=(B,H,N,P), conv=(B,K-1,C))
     for single-token decode. Returns (out, new_cache)."""
@@ -172,26 +186,30 @@ def mamba_block(params, x, cfg, *, cache=None):
     xr, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
 
     dt = _softplus(dt.float() + params["dt_bias"].float())      # (B,S,H)
-    x_heads = xr.reshape(bsz, s, nh, p)
+    x_heads = shard(xr.reshape(bsz, s, nh, p), "batch", "seq", "ssm_inner",
+                    None)
 
+    # the scan is independent per batch row and head: under a policy it
+    # runs on each rank's local shards
     if cache is not None:
-        # single-token recurrent step (S == 1)
-        a = torch.exp(-torch.exp(params["A_log"].float()) * dt[:, 0])  # (B,H)
-        upd = torch.einsum("bn,bhp->bhnp", b_in[:, 0].float(),
-                           dt[:, 0, :, None] * x_heads[:, 0].float())
-        state = cache["ssm"] * a[..., None, None] + upd
-        y = torch.einsum("bn,bhnp->bhp", c_in[:, 0].float(), state)
+        y, state = on_local_shards(
+            _ssd_step, [(x_heads[:, 0], 0, 1), (dt[:, 0], 0, 1),
+                        (params["A_log"], None, 0), (b_in[:, 0], 0, None),
+                        (c_in[:, 0], 0, None), (cache["ssm"], 0, 1)],
+            ((0, 1), (0, 1)), heads=nh)
         y = y[:, None]                                            # (B,1,H,P)
     else:
-        y, state = ssd_chunked(x_heads, dt, params["A_log"], b_in, c_in,
-                               s_cfg.chunk)
+        y, state = on_local_shards(
+            lambda *a: ssd_chunked(*a, s_cfg.chunk),
+            [(x_heads, 0, 2), (dt, 0, 2), (params["A_log"], None, 0),
+             (b_in, 0, None), (c_in, 0, None)], ((0, 2), (0, 1)), heads=nh)
     new_cache = {"ssm": state, "conv": new_conv}
 
     y = y.to(COMPUTE_DTYPE) + params["D"].to(COMPUTE_DTYPE)[:, None] * x_heads
     y = y.reshape(bsz, s, di)
     y = rmsnorm(params["out_norm"], y, cfg.norm_eps) * _silu(z)
     out = torch.einsum("bsk,kd->bsd", y, params["w_out"].to(COMPUTE_DTYPE))
-    return out, new_cache
+    return shard(out, "batch", "seq", "act_embed"), new_cache
 
 
 def mamba_cache_init(cfg, batch, device):
@@ -321,6 +339,21 @@ def mlstm_step(q, k, v, log_i, log_f, state):
     return (num / den[..., None]).to(q.dtype), (c_st, n_st, m_new)
 
 
+def _mlstm_step_flat(q, k, v, log_i, f_pre, c_st, n_st, m_st):
+    """:func:`mlstm_step` from the forget gate's pre-activation, with the
+    state flat: (h, C, n, m)."""
+    h, state = mlstm_step(q, k, v, log_i, F.logsigmoid(f_pre),
+                          (c_st, n_st, m_st))
+    return (h, *state)
+
+
+def _mlstm_chunked_flat(q, k, v, log_i, f_pre, chunk):
+    """:func:`mlstm_chunked` from the forget gate's pre-activation, with the
+    state flat: (h_seq, C, n, m)."""
+    h_seq, state = mlstm_chunked(q, k, v, log_i, F.logsigmoid(f_pre), chunk)
+    return (h_seq, *state)
+
+
 def mlstm_block(params, x, cfg, *, cache=None):
     """mLSTM block. x: (B,S,D). cache: dict(C, n, m) for single-token
     decode.  Returns (out, new_cache)."""
@@ -335,24 +368,31 @@ def mlstm_block(params, x, cfg, *, cache=None):
                             params[w].to(COMPUTE_DTYPE))
                for w in ("wq", "wk", "wv"))
     log_i = torch.einsum("bsd,dh->bsh", xn, params["w_i"].to(COMPUTE_DTYPE))
-    log_f = F.logsigmoid(
-        torch.einsum("bsd,dh->bsh", xn,
-                     params["w_f"].to(COMPUTE_DTYPE)).float()
-        + params["b_f"].float())
+    f_pre = (torch.einsum("bsd,dh->bsh", xn,
+                          params["w_f"].to(COMPUTE_DTYPE)).float()
+             + params["b_f"].float())
 
+    # the forget gate's log-sigmoid and the scan are independent per batch
+    # row and head: under a policy they run on each rank's local shards
     if cache is not None:
-        h_out, new_state = mlstm_step(q[:, 0], k[:, 0], v[:, 0],
-                                      log_i[:, 0], log_f[:, 0],
-                                      (cache["C"], cache["n"], cache["m"]))
+        h_out, *new_state = on_local_shards(
+            _mlstm_step_flat,
+            [(q[:, 0], 0, 1), (k[:, 0], 0, 1), (v[:, 0], 0, 1),
+             (log_i[:, 0], 0, 1), (f_pre[:, 0], 0, 1), (cache["C"], 0, 1),
+             (cache["n"], 0, 1), (cache["m"], 0, 1)],
+            ((0, 1),) * 4, heads=h)
         h_seq = h_out[:, None]
     else:
-        h_seq, new_state = mlstm_chunked(q, k, v, log_i, log_f, xc.chunk)
+        h_seq, *new_state = on_local_shards(
+            lambda *a: _mlstm_chunked_flat(*a, xc.chunk),
+            [(t, 0, 2) for t in (q, k, v, log_i, f_pre)],
+            ((0, 2),) + ((0, 1),) * 3, heads=h)
     new_cache = {"C": new_state[0], "n": new_state[1], "m": new_state[2]}
     h_seq = rmsnorm(params["head_norm"], h_seq, cfg.norm_eps)
     h_flat = h_seq.reshape(bsz, s, di) * _silu(z)
     out = torch.einsum("bsk,kd->bsd", h_flat,
                        params["w_down"].to(COMPUTE_DTYPE))
-    return out, new_cache
+    return shard(out, "batch", "seq", "act_embed"), new_cache
 
 
 def mlstm_cache_init(cfg, batch, device):
@@ -419,6 +459,16 @@ def _slstm_step(r, carry, x_t):
     return (c, n, h_new, m_new), h_new
 
 
+def _slstm_scan(r, xg, *carry):
+    """The sLSTM's steps over xg (S, B, H, 4, hd) from ``carry`` -> (h_seq
+    (B, S, H, hd), c, n, h, m)."""
+    hs = []
+    for x_t in xg:
+        carry, h_t = _slstm_step(r, carry, x_t)
+        hs.append(h_t)
+    return (torch.stack(hs, dim=1), *carry)
+
+
 def slstm_block(params, x, cfg, *, cache=None):
     """sLSTM block. x: (B,S,D). cache: dict(c, n, h, m), each (B, D) fp32,
     for single-token decode.  Returns (out, new_cache)."""
@@ -439,18 +489,18 @@ def slstm_block(params, x, cfg, *, cache=None):
         zeros = torch.zeros((bsz, heads, hd), dtype=torch.float32,
                             device=x.device)
         carry = (zeros, zeros, zeros, torch.full_like(zeros, -math.inf))
-    hs = []
-    for t in range(s):
-        carry, h_t = _slstm_step(r, carry, xg[t])
-        hs.append(h_t)
-    h_seq = torch.stack(hs, dim=1)                        # (B,S,H,hd) fp32
+    # the recurrence is independent per batch row and head: under a policy
+    # it runs on each rank's local shards
+    h_seq, *carry = on_local_shards(
+        _slstm_scan, [(r, None, 0), (xg, 1, 2), *((t, 0, 1) for t in carry)],
+        ((0, 2),) + ((0, 1),) * 4, heads=heads)     # h_seq (B,S,H,hd) fp32
     new_cache = {k: v.reshape(bsz, d) for k, v in zip(("c", "n", "h", "m"),
                                                        carry)}
     h_seq = rmsnorm(params["head_norm"], h_seq, cfg.norm_eps)
     out = torch.einsum("bsd,dk->bsk",
                        h_seq.reshape(bsz, s, d).to(COMPUTE_DTYPE),
                        params["w_out"].to(COMPUTE_DTYPE))
-    return out, new_cache
+    return shard(out, "batch", "seq", "act_embed"), new_cache
 
 
 def slstm_cache_init(cfg, batch, device):

@@ -363,3 +363,81 @@ def test_recurrent_block_on_card_matches_cpu(dev, name, kind, monkeypatch):
     s_cpu, _ = block(params, x[:, 40:], cfg, cache=c_cpu)
     s_dev, _ = block(on_card, x[:, 40:].to(dev), cfg, cache=c_dev)
     torch.testing.assert_close(s_dev.cpu(), s_cpu, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("phi4-mini-3.8b", dict(num_heads=6, num_kv_heads=2, head_dim=128)),
+    ("qwen3-moe-30b-a3b", dict(num_heads=8, num_kv_heads=1)),
+    ("jamba-v0.1-52b", {}), ("xlstm-125m", {})])
+def test_sharded_walk_on_a_one_rank_nccl_mesh(dev, tmp_path, name, kw):
+    """chip_smoke.py phase 13 at the reduced size, for every family with a
+    recurrent or MoE core too: under a (1, 1) mesh policy (a one-rank NCCL
+    world from a file store) the model walks as the plain params do, with
+    K1 launched on local shards once per attention layer and step, and its
+    loss and the unembedding's gradient agree; ``compressed_psum`` over
+    the NCCL group equals ``compress_grads`` bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.sharding import ShardingPolicy, use_policy
+    from repro_torch.sharding.specs import device_put, param_shardings
+    from repro_torch.training.compression import (compress_grads,
+                                                  compressed_psum,
+                                                  init_error_feedback)
+    cfg = get_reduced(name, **kw)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        torch.bfloat16, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 48), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    card = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0, device_id=card)
+
+    def full(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def walk(p, feed=None):
+        out, fed = [], []
+        logits, caches = model.prefill(p, {"tokens": toks}, max_len=64)
+        for step in range(8):
+            tok = full(logits).argmax(-1) if feed is None else feed[step]
+            fed.append(tok)
+            logits, caches = model.decode(p, caches, tok[:, None], 48 + step,
+                                          decode_impl="pallas")
+            out.append(full(logits))
+        return out, fed
+
+    def loss_and_grad(p):
+        p["unembed"].requires_grad_(True)
+        loss = model.train_loss(p, {"tokens": toks})
+        grad, = torch.autograd.grad(loss, [p["unembed"]])
+        p["unembed"].requires_grad_(False)
+        return full(loss).detach().float(), full(grad).float()
+
+    try:
+        policy = ShardingPolicy(make_test_mesh((1, 1)))
+        sharded = device_put(params, param_shardings(params, policy))
+        with torch.no_grad():
+            plain, fed = walk(params)
+            before = dops.decode_attention.launches
+            with use_policy(policy):
+                got, _ = walk(sharded, fed)
+        assert dops.decode_attention.launches == \
+            before + 8 * model.mixers.count("attn")
+        for a, b in zip(got, plain):
+            spread = b.max(-1).values - b.min(-1).values
+            assert torch.all((a - b).abs().max(-1).values < 0.02 * spread)
+        loss, grad = loss_and_grad(params)
+        with use_policy(policy):
+            sloss, sgrad = loss_and_grad(sharded)
+        assert abs(float(sloss - loss)) < 2e-3
+        torch.testing.assert_close(sgrad, grad, atol=2e-2, rtol=2e-2)
+        grads = [torch.randn(s, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(i)) for i, s in enumerate([(64, 33), (7,)])]
+        err = init_error_feedback(grads)
+        got, got_err = compressed_psum(grads, None, err)
+        want, want_err = compress_grads(grads, err)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(got + got_err, want + want_err))
+    finally:
+        dist.destroy_process_group()

@@ -257,3 +257,69 @@ def test_full_size_recurrent_models_build(name, counts, kv_bytes):
     caches = model.cache_init(2, 64, "meta")
     assert all(t.shape[1] == 2 for t in caches.values())
     assert kv_token_bytes(model) == kv_bytes
+
+
+SLICE_10 = ("sharding/__init__.py", "sharding/policy.py", "sharding/specs.py",
+            "launch/mesh.py", "training/compression.py",
+            "training/elastic.py", "models/moe.py",
+            "kernels/paged_attention/ops.py", "kernels/flash_attention/ops.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_10)
+def test_sharding_slice_modules_import_only_torch_numpy_and_the_port(rel):
+    """The sharding slice's modules, and those it changed, import nothing
+    of JAX or the JAX package."""
+    import sys
+    path = ROOT / "src" / "repro_torch" / rel
+    names = {n.split(".")[0] for n in _imported(ast.parse(path.read_text()))}
+    assert names & set(FORBIDDEN) == set()
+    assert names - set(sys.stdlib_module_names) <= {"numpy", "torch",
+                                                    "repro_torch"}
+
+
+def test_mesh_entry_points_default_to_cuda(no_cuda):
+    """``make_production_mesh``, ``make_test_mesh`` and
+    ``ElasticMesh.make_mesh`` build on ``cuda`` unless told otherwise, and
+    with no CUDA device they raise before touching a process group."""
+    import inspect
+    from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
+    from repro_torch.training.elastic import ElasticMesh
+    for fn in (make_production_mesh, make_test_mesh, ElasticMesh.make_mesh):
+        assert inspect.signature(fn).parameters["device_type"].default \
+            == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_production_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_test_mesh((1, 1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ElasticMesh(1).make_mesh([0])
+
+
+def test_kernel_wrappers_refuse_a_dtensor():
+    """A DTensor never reaches a kernel or its plain version: the wrappers
+    raise, on any device (the model hands them each rank's local shards)."""
+    import os
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.launch.mesh import make_test_mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", world_size=1, rank=0,
+                                init_method=f"file://{os.path.join(tmp, 's')}")
+        try:
+            mesh = make_test_mesh((1, 1), device_type="cpu")
+            q = DTensor.from_local(torch.zeros(1, 2, 32), mesh,
+                                   [Replicate()] * 2)
+            k = torch.zeros(1, 4, 1, 32)
+            lengths = torch.ones(1, dtype=torch.int32)
+            with pytest.raises(TypeError, match="DTensor"):
+                decode_attention(q, k, k, lengths)
+            with pytest.raises(TypeError, match="DTensor"):
+                paged_attention(q, k, k, lengths[:, None], lengths)
+            with pytest.raises(TypeError, match="DTensor"):
+                flash_attention(q[:, None], k, k)
+        finally:
+            dist.destroy_process_group()
