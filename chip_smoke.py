@@ -90,6 +90,19 @@ Phases, each of which fails the run (exit code 1) if it fails:
    must equal ``compress_grads`` bit for bit.  The prompt pass is timed
    with and without the policy (DTensor's host cost); the process group
    is destroyed before the next phase.
+14. The launch tooling, last: ``python -m repro_torch.launch.dryrun
+   --mesh single`` on a fake 256-rank group for DRYRUN_CELLS (one process
+   a cell, started together; each must exit 0, hold every key
+   ``roofline.fmt_row`` reads and count its collectives as
+   ``CommDebugMode`` does), then ``python -m repro_torch.launch.roofline``
+   over their records.  Then the measured cell: a fresh full-width
+   Phi-4-mini in bf16 on a one-rank NCCL (1, 1) mesh, as phase 13 starts
+   it, with caches of CELL_B x CELL_T: ``bytes_per_device`` of params and
+   caches within CELL_BYTES_TOL of ``memory_allocated`` after placing
+   them; one ``"sdpa"`` decode step (no kernel launched) counted by the
+   cost counter, its roofline terms printed beside the step's CUDA-event
+   time under the policy and without it and its device busy time, and the
+   counter's eager-peak temps beside ``max_memory_allocated``.
 
 It prints one JSON line of kernel records, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -108,9 +121,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-FP32_FLOPS_PER_S = 67e12           # H100 SXM, float32 outside tensor cores
-BF16_FLOPS_PER_S = 989e12          # H100 SXM, bf16 tensor cores, dense
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 WALK_BOUND = 0.02                  # x logit spread (tests/test_engine_batching.py)
 MAX_LEN = 1088                     # 68 pages of 16 tokens
@@ -152,6 +162,15 @@ def ptxas_lines(log: str, needle: str):
             keep = needle in line
         if keep or "warning" in line.lower() or "Performance Loss" in line:
             yield line.strip()
+
+
+def peaks():
+    """The H100 SXM's peaks, from the port's roofline constants
+    (``repro_torch.launch.hlo_analysis``: ``PEAK_FLOPS`` bf16 dense,
+    ``FP32_FLOPS``, ``HBM_BW``, ``LINK_BW``), imported once ``main`` has put
+    ``src`` on the path."""
+    from repro_torch.launch import hlo_analysis
+    return hlo_analysis
 
 
 def fail(msg: str) -> None:
@@ -343,11 +362,11 @@ def hold_decode_kernels(torch, F, gen, h, kh, hd, suffix="", paged=True,
     item = 2
     kv_bytes = sum(lens) * kh * hd * 2 * item      # K and V below length
     io_bytes = 2 * SLOTS * h * hd * item + SLOTS * 4   # q, out, lengths
-    ops_ms = 4 * h * hd * sum(lens) / FP32_FLOPS_PER_S * 1e3
+    ops_ms = 4 * h * hd * sum(lens) / peaks().FP32_FLOPS * 1e3
     records = []
 
     def record(name, kernel, plain, sets, lib_sets, moved):
-        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        bytes_ms = moved / peaks().HBM_BW * 1e3
         return dict(
             name=name + suffix, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], max_abs_err=errs[name],
@@ -491,8 +510,8 @@ def time_flash(torch, F, gen, b, s, h, kh, hd, suffix=""):
         q, k, v, is_causal=True, enable_gqa=True)
     moved = sum(x.numel() for x in sets[0]) * 2 + sets[0][0].numel() * 2
     pairs = s * (s + 1) // 2                  # causal (query, key) pairs
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = 4 * b * h * hd * pairs / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = moved / peaks().HBM_BW * 1e3
+    ops_ms = 4 * b * h * hd * pairs / peaks().PEAK_FLOPS * 1e3
     rec = dict(
         name="flash_attention" + suffix, route="cuda",
         source=SOURCES["flash_attention"],
@@ -1625,8 +1644,8 @@ def hold_local_k1(torch, F, args, launches):
     valid = int(lengths.sum())
     item = q.element_size()
     bytes_ms = (valid * kh * hd * 2 * item + 2 * b * h * hd * item
-                + 4 * b) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 4 * h * hd * valid / FP32_FLOPS_PER_S * 1e3
+                + 4 * b) / peaks().HBM_BW * 1e3
+    ops_ms = 4 * h * hd * valid / peaks().FP32_FLOPS * 1e3
     rec = dict(name="decode_attention_sharded", route="cuda",
                source=SOURCES["decode_attention"],
                replaces=REPLACES["decode_attention"], launches=launches,
@@ -1677,6 +1696,248 @@ def paper_topologies():
         print(f"phase 13 {arch} at (data, model) = (1, {tp}): {total} bytes "
               f"of bf16 params, {per} bytes a device "
               f"({per / 2**30:.3f} GiB; spec tables on meta tensors)")
+
+
+# ------------------------------------------------------------ phase 14 ---
+
+# the dry run's cells: (arch, shape) on the fake 256-rank (16, 16) mesh
+DRYRUN_CELLS = (("phi4-mini-3.8b", "decode_32k"),
+                ("phi4-mini-3.8b", "prefill_32k"),
+                ("llama-3.1-70b", "decode_32k"),
+                ("nemotron-4-340b", "decode_32k"))
+DRYRUN_TIMEOUT = 600
+# what roofline.fmt_row reads of a record
+FMT_ROW_KEYS = {"arch": (), "shape": (), "mesh": (), "useful_flops_ratio": (),
+                "roofline": ("compute_s", "memory_s", "collective_s",
+                             "bottleneck", "roofline_fraction"),
+                "memory": ("argument_size_in_bytes", "temp_size_in_bytes")}
+CELL_B, CELL_T = 8, 8192                 # the measured decode step
+CELL_BYTES_TOL = 0.01
+
+
+def phase_dryrun(gpu):
+    """Phase 14 (a): the dry-run CLI on a fake 256-rank group, one
+    process a cell, all started together; then the roofline report over
+    their records.  Returns the records."""
+    import os
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for arch, shape in DRYRUN_CELLS:
+            out = Path(tmp) / f"{arch}_{shape}.jsonl"
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--mesh", "single", "--arch", arch, "--shape", shape,
+                   "--out", str(out)]
+            procs.append((arch, shape, out, subprocess.Popen(
+                cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+        try:
+            logs = [(a, s, o, p.communicate(timeout=DRYRUN_TIMEOUT)[0],
+                     p.returncode) for a, s, o, p in procs]
+        finally:
+            for *_, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        records = []
+        for arch, shape, out, log, rc in logs:
+            lines = [ln for ln in log.splitlines()
+                     if "alltoall yet" not in ln]
+            print("\n".join(f"  {ln}" for ln in lines[-6:]))
+            check(rc == 0, f"phase 14: dry run of {arch} {shape} exited {rc}")
+            rec, = [json.loads(ln) for ln in out.read_text().splitlines()
+                    if ln.strip()]
+            for key, sub in FMT_ROW_KEYS.items():
+                check(key in rec and all(k in rec[key] for k in sub),
+                      f"phase 14: {arch} {shape} record lacks {key} {sub}")
+            coll = rec["collectives"]
+            check(coll["counts"] == coll["comm_debug_counts"],
+                  f"phase 14: {arch} {shape} collectives {coll['counts']} "
+                  f"against CommDebugMode's {coll['comm_debug_counts']}")
+            mem = rec["memory"]
+            print(f"phase 14 dry run {arch} {shape} on {rec['mesh']} "
+                  f"({rec['devices']} fake ranks, traced in "
+                  f"{rec['trace_s']} s): {rec['cost']['flops']:.6g} FLOPs "
+                  f"and {rec['cost']['bytes_accessed']:.6g} bytes a device, "
+                  f"args {mem['argument_size_in_bytes']} bytes "
+                  f"({mem['argument_size_in_bytes'] / 2**30:.3f} GiB) a "
+                  f"device, eager-peak temps "
+                  f"{mem['temp_size_in_bytes'] / 2**30:.3f} GiB, "
+                  f"collectives {coll['counts']} "
+                  f"({coll['total_bytes']:.6g} bytes), "
+                  f"= CommDebugMode's")
+            records.append(rec)
+        report = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.roofline",
+             *(str(o) for _, _, o, _, _ in logs)], env=env, cwd=ROOT,
+            capture_output=True, text=True, timeout=120)
+    check(report.returncode == 0,
+          f"phase 14: roofline report failed: {report.stderr[-2000:]}")
+    print(report.stdout.rstrip())
+    print(f"phase 14 roofline constants are the H100 SXM's; card: [{gpu}]")
+    return records
+
+
+def phase_measured_cell(torch, gpu, counters):
+    """Phase 14 (b): one decode step of full-width Phi-4-mini (bf16, B =
+    CELL_B, a cache of CELL_T positions, ``"sdpa"``) on a one-rank NCCL
+    (1, 1) mesh, as phase 13 starts it: the counter's FLOPs, bytes and
+    roofline terms beside the step's CUDA-event time, the spec tables'
+    bytes a device beside ``memory_allocated``, and the eager-peak
+    estimate beside ``max_memory_allocated``."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.configs import get_config
+    from repro_torch.launch import hlo_analysis, jaxpr_cost
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.sharding import ShardingPolicy, use_policy
+    from repro_torch.sharding.specs import (bytes_per_device,
+                                            cache_shardings, device_put,
+                                            param_shardings)
+
+    cfg = get_config("phi4-mini-3.8b")
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0,
+                                device_id=torch.device("cuda", 0))
+        try:
+            mesh = make_test_mesh((1, 1))
+            policy = ShardingPolicy(mesh)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            model, params = init_on_card(torch, cfg)
+            p_sh = param_shardings(params, policy)
+            sharded = device_put(params, p_sh)
+            del params
+            with use_policy(policy):
+                caches = model.cache_init(CELL_B, CELL_T, "cuda")
+            torch.cuda.synchronize()
+            placed = torch.cuda.memory_allocated() - before
+            c_sh = cache_shardings(caches, policy)
+            predicted = (bytes_per_device(sharded, p_sh)
+                         + bytes_per_device(caches, c_sh))
+            gap = abs(placed - predicted) / predicted
+            print(f"phase 14 cell {cfg.name} B={CELL_B} T={CELL_T}: "
+                  f"bytes_per_device(params + caches) {predicted} "
+                  f"({predicted / 2**30:.3f} GiB), memory_allocated after "
+                  f"placing them {placed} ({placed / 2**30:.3f} GiB): "
+                  f"{gap:.3%} apart (bound {CELL_BYTES_TOL:.0%})")
+            check(gap <= CELL_BYTES_TOL,
+                  f"phase 14: {placed} bytes placed against {predicted} "
+                  f"predicted")
+            tokens = torch.full((CELL_B, 1), 7, dtype=torch.int32,
+                                device="cuda")
+            cur = CELL_T - 1
+
+            def step():
+                logits, _ = model.decode(sharded, caches, tokens, cur,
+                                         decode_impl="sdpa")
+                return logits
+
+            with torch.no_grad(), use_policy(policy):
+                step()                                     # warm-up
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                for fn in counters:
+                    fn.launches = 0
+                logits = step()
+                torch.cuda.synchronize()
+                launches = {fn.__name__: fn.launches for fn in counters}
+                peak = torch.cuda.max_memory_allocated() - base
+                check(not any(launches.values()),
+                      f"phase 14: the sdpa step launched kernels {launches}")
+                check(bool(torch.isfinite(logits.full_tensor()).all()),
+                      "phase 14: non-finite logits")
+                times = []
+                for _ in range(3):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    step()
+                    end.record()
+                    torch.cuda.synchronize()
+                    times.append(start.elapsed_time(end))
+                with CommDebugMode() as comm, \
+                        jaxpr_cost.counting() as counter:
+                    step()
+                torch.cuda.synchronize()
+            coll = hlo_analysis.collective_bytes(counter.collectives, 1)
+            comm_counts = hlo_analysis.comm_debug_counts(comm)
+            check(dict(coll.counts) == comm_counts,
+                  f"phase 14: collectives {dict(coll.counts)} against "
+                  f"CommDebugMode's {comm_counts}")
+            cost = counter.cost
+            terms = hlo_analysis.roofline_terms(
+                {"flops": cost.flops, "bytes accessed": cost.bytes}, coll)
+            bound_ms = 1e3 * max(terms["compute_s"], terms["memory_s"],
+                                 terms["collective_s"])
+            print(f"phase 14 cell counter: {cost.flops:.6g} FLOPs "
+                  f"({cost.contraction_flops():.6g} in contractions), "
+                  f"{cost.bytes:.6g} bytes; roofline compute "
+                  f"{terms['compute_s'] * 1e3:.4f} ms, memory "
+                  f"{terms['memory_s'] * 1e3:.4f} ms, collective "
+                  f"{terms['collective_s'] * 1e3:.4f} ms -> "
+                  f"{terms['bottleneck']}, bound {bound_ms:.4f} ms; "
+                  f"collectives {dict(coll.counts)} = CommDebugMode's")
+            print(f"phase 14 cell step under the (1, 1) policy, CUDA events "
+                  f"(3): {', '.join(f'{t:.2f}' for t in times)} ms "
+                  f"[{gpu}]")
+            plain_ms, busy_ms = time_plain_step(
+                torch, model, sharded, caches, tokens, cur)
+            print(f"phase 14 cell step on the same tensors without the "
+                  f"policy, CUDA events (3): "
+                  f"{', '.join(f'{t:.2f}' for t in plain_ms)} ms; device "
+                  f"busy (profiler, sum of kernel times) {busy_ms:.4f} ms "
+                  f"= {bound_ms / busy_ms:.3f} of it the roofline bound "
+                  f"[{gpu}]")
+            print(f"phase 14 cell temps: eager-peak estimate "
+                  f"{counter.peak_bytes} bytes "
+                  f"({counter.peak_bytes / 2**30:.4f} GiB), "
+                  f"max_memory_allocated over the step {peak} bytes "
+                  f"({peak / 2**30:.4f} GiB)")
+            del sharded, caches, logits
+        finally:
+            dist.destroy_process_group()
+    check(not dist.is_initialized(), "phase 14: process group left open")
+
+
+def time_plain_step(torch, model, sharded, caches, tokens, cur):
+    """The measured cell's step on the DTensors' local tensors with no
+    policy: CUDA-event ms of 3 steps, and the device busy ms of one (the
+    sum of its kernels' times, ``torch.profiler``)."""
+    def local(tree):
+        if isinstance(tree, dict):
+            return {k: local(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [local(v) for v in tree]
+        return tree.to_local()
+
+    params, cache = local(sharded), local(caches)
+    times = []
+    with torch.no_grad():
+        model.decode(params, cache, tokens, cur)            # warm-up
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            model.decode(params, cache, tokens, cur)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            model.decode(params, cache, tokens, cur)
+            torch.cuda.synchronize()
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return times, busy_us / 1e3
 
 
 def _local(x):
@@ -1798,6 +2059,18 @@ def main() -> int:
     records += phase_multimodal(torch, F, counters, gpu)
     print(f"phase 11: {VLM_ARCH} and {ENCDEC_ARCH} served and walked at full "
           f"size ({time.perf_counter() - t0:.1f} s)")
+
+    # phase 14 places a fresh full-width Phi-4-mini and 8.6 GB of caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    print(f"before phase 14: {held:.3f} GiB held")
+    check(held < 4.0, f"{held:.2f} GiB still held before phase 14")
+    t0 = time.perf_counter()
+    phase_dryrun(gpu)
+    phase_measured_cell(torch, gpu, counters)
+    print(f"phase 14: dry runs on a fake 256-rank group and the measured "
+          f"decode cell ({time.perf_counter() - t0:.1f} s)")
 
     for r in records:
         if "launches" not in r:             # phases 9-11 counted their own

@@ -57,7 +57,7 @@ def decode_attention_plain(q, k, v, lengths):
 
 def reject_dtensor(name, *tensors):
     """Raise for a ``DTensor``: a kernel takes each rank's local shards
-    (the model hands them over, ``models.layers._on_local_shards``) and
+    (the model hands them over, ``models.layers.on_local_shards``) and
     has no distributed form, plain version included."""
     if any(isinstance(t, DTensor) for t in tensors):
         raise TypeError(f"{name}: got a DTensor; pass each rank's local "

@@ -39,6 +39,7 @@ shards (:func:`on_local_shards`): batch over the data axes, heads over
 """
 from __future__ import annotations
 
+import contextvars
 import math
 
 import numpy as np
@@ -176,11 +177,52 @@ def _sdpa_chunked(q, k, v, qpos, q_per_kv, *, kind, kv_lengths=None,
 def _project_out(out, params):
     """The output projection and its sharding site, the one the reference
     takes after each of its four (layers.py:225, 265, 274, 282)."""
-    out = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(COMPUTE_DTYPE))
+    out = head_einsum("bshk,hkd->bsd", out, params["wo"].to(COMPUTE_DTYPE),
+                      w_heads=0, x_heads=2)
     return shard(out, "batch", "seq", "act_embed")
 
 
+def merge_heads(x):
+    """x (..., H, hd) -> (..., H * hd).  DTensor of torch 2.11 cannot
+    flatten a group whose inner dim is sharded, so a head_dim sharded over
+    a mesh axis (where the heads do not divide it) is gathered first."""
+    if isinstance(x, DTensor):
+        place = [Replicate() if isinstance(p, Shard) and p.dim == x.dim() - 1
+                 else p for p in x.placements]
+        if place != list(x.placements):
+            x = x.redistribute(x.device_mesh, place)
+    return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+
+def head_einsum(eq, x, w, *, w_heads, x_heads=None, out_heads=None):
+    """``torch.einsum(eq, x, w)``, batch first in ``x`` and the result,
+    for a weight ``w`` with a heads dim (``w_heads``; ``x_heads`` and
+    ``out_heads`` the operand's and result's, where they have one).  Where
+    the model axis does not divide the heads, the weight is laid out on
+    head_dim (``kv_head_dim``) and the product would flatten a dim sharded
+    inside the (heads, head_dim) group, which DTensor of torch 2.11 refuses
+    and 2.13 cannot always undo; such a product runs on local shards
+    (:func:`on_local_shards`): the weight whole on every rank, the batch
+    split over the data axes, every rank computing all heads, as the
+    attention core then does.  Otherwise DTensor's own product."""
+    heads = w.shape[w_heads]
+    if not isinstance(w, DTensor) \
+            or heads % mesh_sizes(w.device_mesh).get("model", 1) == 0:
+        return torch.einsum(eq, x, w)
+    return on_local_shards(lambda a, b: torch.einsum(eq, a, b),
+                           [(x, 0, x_heads), (w, None, w_heads)],
+                           (0, out_heads), heads=heads)
+
+
 _DATA_AXES = ("pod", "data")
+
+# How :func:`on_local_shards` calls its ``fn``: ``call(fn, tensors, split)``,
+# where ``split`` is the number of ranks that share the work (each computes
+# 1/split of it, or all of it where split is 1).  The plain call unless the
+# cost counter (``repro_torch.launch.jaxpr_cost``) installs its own, to
+# count the local ops at the global shapes.
+LOCAL_CALL = contextvars.ContextVar(
+    "local_call", default=lambda fn, tensors, split: fn(*tensors))
 
 
 def on_local_shards(fn, args, outs, *, heads):
@@ -233,7 +275,9 @@ def on_local_shards(fn, args, outs, *, heads):
         return x.redistribute(mesh, place).to_local(
             grad_placements=grad).contiguous()
 
-    out = fn(*(local(t, b, h) for t, b, h in args))
+    ranks = (data if by_batch else 1) * (sizes.get("model", 1)
+                                         if by_heads else 1)
+    out = LOCAL_CALL.get()(fn, [local(t, b, h) for t, b, h in args], ranks)
     if isinstance(outs[0], int):
         return DTensor.from_local(out, mesh, layout(*outs), run_check=False)
     return tuple(DTensor.from_local(o, mesh, layout(*d), run_check=False)
@@ -287,11 +331,12 @@ def attention(params, x, cfg, *, positions=None, kv_cache=None,
     hd = cfg.resolved_head_dim
     g = cfg.q_heads_per_kv
     xn = rmsnorm(params["norm"], x, cfg.norm_eps)
-    q = torch.einsum("bsd,dhk->bshk", xn, params["wq"].to(COMPUTE_DTYPE))
+    q = head_einsum("bsd,dhk->bshk", xn, params["wq"].to(COMPUTE_DTYPE),
+                    w_heads=1, out_heads=2)
     q = shard(q, "batch", "seq", "heads", "head_dim")
     src = xn if kv_source is None else kv_source.to(xn.dtype)
-    k = torch.einsum("bsd,dhk->bshk", src, params["wk"].to(COMPUTE_DTYPE))
-    v = torch.einsum("bsd,dhk->bshk", src, params["wv"].to(COMPUTE_DTYPE))
+    k, v = (head_einsum("bsd,dhk->bshk", src, params[w].to(COMPUTE_DTYPE),
+                        w_heads=1, out_heads=2) for w in ("wk", "wv"))
 
     if positions is None:
         positions = torch.arange(s, device=x.device)

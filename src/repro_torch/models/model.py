@@ -51,6 +51,7 @@ the reference, which trains without it).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
@@ -61,12 +62,13 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.sharding import current_policy, shard
-from repro_torch.sharding.specs import cache_shardings, device_put
+from repro_torch.sharding.policy import mesh_sizes, placements
+from repro_torch.sharding.specs import cache_spec
 
 
 # Deterministic synthetic-shape conventions for enc-dec / VLM cells
@@ -213,37 +215,47 @@ class Model:
 
     # ----------------------------------------------------------- caches ----
 
-    def _zeros(self, rows, cols, device):
+    def _kv_layout(self, rows, cols):
+        """{"k", "v": (shape, dtype, fill)} of the K/V leaves: (P_attn, rows,
+        cols, K, hd) zeros in bf16 (none without attention layers)."""
         cfg = self.cfg
         n_attn = self.mixers.count("attn")
         if not n_attn:
             return {}
         shape = (n_attn, rows, cols, cfg.num_kv_heads, cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, dtype=KV_DTYPE, device=device),
-                "v": torch.zeros(shape, dtype=KV_DTYPE, device=device)}
+        return dict.fromkeys(("k", "v"), (shape, KV_DTYPE, 0.0))
+
+    def _cache_layout(self, batch, max_len):
+        """{leaf: (shape, dtype, fill)} of the decode caches (module
+        docstring): every leaf starts uniform, at 0 or at a recurrent
+        kind's value (``-inf`` for its stabilisers), read from that kind's
+        ``*_cache_init`` of one row on the CPU."""
+        cfg = self.cfg
+        layout = self._kv_layout(batch, max_len)
+        if self.n_cross:
+            shape = (self.n_cross, batch, ENC_CTX_DECODE, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            for name in CACHE_LEAVES["cross"]:
+                layout[name] = (shape, L.COMPUTE_DTYPE, 0.0)
+        for kind, mixer in RECURRENT.items():
+            n = self.mixers.count(kind)
+            if n:
+                for name, t in mixer.cache_init(cfg, 1, "cpu").items():
+                    fill = t.reshape(-1)[0]
+                    assert bool((t == fill).all()), (kind, name)
+                    layout[mixer.prefix + name] = (
+                        (n, batch, *t.shape[1:]), t.dtype, float(fill))
+        return layout
 
     def cache_init(self, batch, max_len, device):
         """The decode caches (module docstring): K/V zeros in bf16, each
         recurrent kind's state as its ``*_cache_init`` gives it (fp32
         states, ``-inf`` stabilisers, a bf16 conv state), stacked over the
         layers of that kind, and the cross layers' encoder K/V, zeros in
-        the compute dtype (model.py:306-311)."""
-        caches = self._zeros(batch, max_len, device)
-        if self.n_cross:
-            cfg = self.cfg
-            shape = (self.n_cross, batch, ENC_CTX_DECODE, cfg.num_kv_heads,
-                     cfg.resolved_head_dim)
-            for name in CACHE_LEAVES["cross"]:
-                caches[name] = torch.zeros(shape, dtype=L.COMPUTE_DTYPE,
-                                           device=device)
-        for kind, mixer in RECURRENT.items():
-            n = self.mixers.count(kind)
-            if n:
-                for name, t in mixer.cache_init(self.cfg, batch,
-                                                device).items():
-                    caches[mixer.prefix + name] = \
-                        t.expand(n, *t.shape).clone()
-        return _distribute_caches(caches)
+        the compute dtype (model.py:306-311).  Under a policy over a
+        ``DeviceMesh`` they are DTensors laid out by ``cache_shardings``,
+        each rank allocating only its local shards."""
+        return _materialise(self._cache_layout(batch, max_len), device)
 
     def paged_cache_init(self, num_pages, block, device):
         """Global KV page pools (P, num_pages + 1, block, K, hd), zeros,
@@ -253,7 +265,7 @@ class Model:
         if not self.supports_paged_decode:
             raise ValueError(f"{self.cfg.name}: paged KV needs a pure "
                              f"causal-attention stack")
-        return _distribute_caches(self._zeros(num_pages + 1, block, device))
+        return _materialise(self._kv_layout(num_pages + 1, block), device)
 
     def _layer_cache(self, caches, i):
         """Layer i's views of ``caches``, under its block's own names (and
@@ -355,9 +367,13 @@ class Model:
         cfg = self.cfg
         dt = L.COMPUTE_DTYPE
         xn = L.rmsnorm(params["norm"], x, cfg.norm_eps)
-        q = torch.einsum("bsd,dhk->bshk", xn, params["wq"].to(dt))
-        out = L._sdpa(q, xk.to(dt), xv.to(dt), None, cfg.q_heads_per_kv)
-        return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
+        q = L.head_einsum("bsd,dhk->bshk", xn, params["wq"].to(dt),
+                          w_heads=1, out_heads=2)
+        out = L._attend_local(
+            lambda q1, k1, v1: L._sdpa(q1, k1, v1, None, cfg.q_heads_per_kv),
+            q, (xk.to(dt), xv.to(dt)))
+        return L.head_einsum("bshk,hkd->bsd", out, params["wo"].to(dt),
+                             w_heads=0, x_heads=2)
 
     def _run_encoder(self, params, frames):
         """The encoder over ``frames`` (B, S, frontend_dim): projected by
@@ -408,8 +424,9 @@ class Model:
                 continue
             j = self.cross_row[i]
             for name, w in (("xk", "wk"), ("xv", "wv")):
-                kv = torch.einsum("bsd,dhk->bshk", src,
-                                  lp["xattn"][w].to(dt))
+                kv = L.head_einsum("bsd,dhk->bshk", src,
+                                   lp["xattn"][w].to(dt), w_heads=1,
+                                   out_heads=2)
                 dst = caches[name][j]
                 dst.copy_(_fit_len(kv, dst.shape[1]))
 
@@ -514,15 +531,72 @@ class Model:
                             page_table=page_table)
         return self._logits(params, x), caches
 
+    # ----------------------------------------------------------- dry-run ----
 
-def _distribute_caches(caches):
-    """``caches`` distributed by ``cache_shardings`` under a policy over a
-    ``DeviceMesh``; as they are otherwise (no policy, or a stub mesh that
-    only sizes the MoE's dispatch groups)."""
+    def input_specs(self, shape: ShapeConfig):
+        """``meta`` tensors standing in for the step inputs (no allocation;
+        the reference's ``ShapeDtypeStruct``s, model.py:496-511)."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        i32, bf16 = torch.int32, torch.bfloat16
+
+        def spec(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+        if shape.kind in ("train", "prefill"):
+            if cfg.family == "encdec":
+                dec = s if shape.kind == "train" else DEC_PREFIX
+                return {"frames": spec((b, s, cfg.frontend_dim), bf16),
+                        "tokens": spec((b, dec), i32)}
+            if cfg.family == "vlm":
+                return {"patches": spec((b, cfg.num_patches,
+                                         cfg.frontend_dim), bf16),
+                        "tokens": spec((b, s - cfg.num_patches), i32)}
+            return {"tokens": spec((b, s), i32)}
+        return {"tokens": spec((b, 1), i32), "cur_index": spec((), i32)}
+
+    def cache_specs(self, shape: ShapeConfig):
+        """The decode caches on the ``meta`` device (model.py:513-515),
+        stacked by leaf kind as :meth:`cache_init` stacks them."""
+        assert shape.kind == "decode"
+        return self.cache_init(shape.global_batch, shape.seq_len,
+                               torch.device("meta"))
+
+    # ------------------------------------------------------------- flops ----
+
+    def model_flops(self, shape: ShapeConfig) -> float:
+        """MODEL_FLOPS = 6·N·D (train) or 2·N·D (inference), N = active
+        params (model.py:519-527)."""
+        n = self.cfg.active_param_count()
+        if shape.kind == "train":
+            return 6.0 * n * shape.global_batch * shape.seq_len
+        if shape.kind == "prefill":
+            return 2.0 * n * shape.global_batch * shape.seq_len
+        return 2.0 * n * shape.global_batch  # decode: one token per sequence
+
+
+def _materialise(layout, device):
+    """The tensors of ``layout`` ({leaf: (shape, dtype, fill)}) on
+    ``device``.  Under a policy over a ``DeviceMesh`` (a stub mesh only
+    sizes the MoE's dispatch groups) each is a DTensor laid out by
+    ``cache_spec``, every rank allocating only its local shard: a cache is
+    never built whole on a rank."""
     policy = current_policy()
     if policy is None or not isinstance(policy.mesh, DeviceMesh):
-        return caches
-    return device_put(caches, cache_shardings(caches, policy))
+        return {name: torch.full(shape, fill, dtype=dtype, device=device)
+                for name, (shape, dtype, fill) in layout.items()}
+    mesh, sizes = policy.mesh, mesh_sizes(policy.mesh)
+    out = {}
+    for name, (shape, dtype, fill) in layout.items():
+        spec = cache_spec(name, shape, policy)
+        local = [d // math.prod(sizes[a] for a in
+                                ((e,) if isinstance(e, str) else (e or ())))
+                 for d, e in zip(shape, spec)]
+        stride = [math.prod(shape[i + 1:]) for i in range(len(shape))]
+        out[name] = DTensor.from_local(
+            torch.full(local, fill, dtype=dtype, device=device), mesh,
+            placements(mesh, spec), run_check=False, shape=torch.Size(shape),
+            stride=tuple(stride))
+    return out
 
 
 LOSS_CHUNK = 512
@@ -533,6 +607,14 @@ def _fit_len(x, t):
     if x.shape[1] >= t:
         return x[:, :t]
     return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, t - x.shape[1]))
+
+
+def _pad_zeros(t, pad):
+    """``t`` with ``pad`` zeros appended along axis 1: a concatenation,
+    which DTensor takes on torch 2.11, where its ``pad`` fails."""
+    zeros = torch.zeros((t.shape[0], pad, *t.shape[2:]), dtype=t.dtype,
+                        device=t.device)
+    return torch.cat([t, zeros], dim=1)
 
 
 def _chunked_ce(x, tgt, unembed, chunk=LOSS_CHUNK):
@@ -564,9 +646,7 @@ def _chunked_ce(x, tgt, unembed, chunk=LOSS_CHUNK):
         return tot / cnt
     pad = (-s) % chunk
     if pad:
-        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
-        tgt = torch.nn.functional.pad(tgt, (0, pad))
-        w = torch.nn.functional.pad(w, (0, pad))
+        x, tgt, w = (_pad_zeros(t, pad) for t in (x, tgt, w))
     tots, cnts = zip(*(checkpoint(block, x[:, i:i + chunk],
                                   tgt[:, i:i + chunk], w[:, i:i + chunk],
                                   use_reentrant=False)

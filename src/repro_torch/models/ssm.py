@@ -24,11 +24,13 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.layers import (COMPUTE_DTYPE, _init,
-                                       on_local_shards, rmsnorm,
-                                       rmsnorm_init)
+from repro_torch.models.layers import (COMPUTE_DTYPE, _init, head_einsum,
+                                       merge_heads, on_local_shards,
+                                       rmsnorm, rmsnorm_init)
 from repro_torch.sharding import shard
+from repro_torch.sharding.policy import mesh_sizes
 
 
 def _softplus(x):
@@ -358,14 +360,13 @@ def mlstm_block(params, x, cfg, *, cache=None):
     """mLSTM block. x: (B,S,D). cache: dict(C, n, m) for single-token
     decode.  Returns (out, new_cache)."""
     xc = cfg.xlstm
-    bsz, s, d = x.shape
     h = cfg.num_heads
-    di = xc.proj_factor * d
     xn = rmsnorm(params["norm"], x, cfg.norm_eps)
     up = torch.einsum("bsd,dk->bsk", xn, params["w_up"].to(COMPUTE_DTYPE))
     inner, z = torch.chunk(up, 2, dim=-1)
-    q, k, v = (torch.einsum("bsk,khp->bshp", inner,
-                            params[w].to(COMPUTE_DTYPE))
+    q, k, v = (head_einsum("bsk,khp->bshp", inner,
+                           params[w].to(COMPUTE_DTYPE), w_heads=1,
+                           out_heads=2)
                for w in ("wq", "wk", "wv"))
     log_i = torch.einsum("bsd,dh->bsh", xn, params["w_i"].to(COMPUTE_DTYPE))
     f_pre = (torch.einsum("bsd,dh->bsh", xn,
@@ -389,7 +390,7 @@ def mlstm_block(params, x, cfg, *, cache=None):
             ((0, 2),) + ((0, 1),) * 3, heads=h)
     new_cache = {"C": new_state[0], "n": new_state[1], "m": new_state[2]}
     h_seq = rmsnorm(params["head_norm"], h_seq, cfg.norm_eps)
-    h_flat = h_seq.reshape(bsz, s, di) * _silu(z)
+    h_flat = merge_heads(h_seq) * _silu(z)
     out = torch.einsum("bsk,kd->bsd", h_flat,
                        params["w_down"].to(COMPUTE_DTYPE))
     return shard(out, "batch", "seq", "act_embed"), new_cache
@@ -429,12 +430,13 @@ def slstm_init(generator, cfg, dtype, device):
     return p
 
 
-def _recurrent_weights(params, heads, hd):
+def _recurrent_weights(*r_gates):
     """The four ``r_g`` (h, hd, hd) as one fp32 (h, hd, 4 * hd), gate-major
     along the last axis: one batched product a step gives every gate's
     recurrent term.  The reference casts each ``r_g`` to fp32 inside every
     step (ssm.py:369-370); casting once is the same values."""
-    r = torch.stack([params[f"r_{g}"].float() for g in GATES], dim=2)
+    heads, hd, _ = r_gates[0].shape
+    r = torch.stack([t.float() for t in r_gates], dim=2)
     return r.reshape(heads, hd, 4 * hd)
 
 
@@ -459,9 +461,12 @@ def _slstm_step(r, carry, x_t):
     return (c, n, h_new, m_new), h_new
 
 
-def _slstm_scan(r, xg, *carry):
-    """The sLSTM's steps over xg (S, B, H, 4, hd) from ``carry`` -> (h_seq
-    (B, S, H, hd), c, n, h, m)."""
+def _slstm_scan(rz, ri, rf, ro, xg, *carry):
+    """The sLSTM's steps over xg (S, B, H, 4, hd) from ``carry`` (each (B,
+    H * hd)), with the gates' recurrent weights ``r_*`` (h, hd, hd) ->
+    (h_seq (B, S, H, hd), c, n, h, m each (B, H, hd))."""
+    r = _recurrent_weights(rz, ri, rf, ro)
+    carry = tuple(t.reshape(t.shape[0], -1, rz.shape[-1]) for t in carry)
     hs = []
     for x_t in xg:
         carry, h_t = _slstm_step(r, carry, x_t)
@@ -476,29 +481,41 @@ def slstm_block(params, x, cfg, *, cache=None):
     heads = cfg.num_heads
     hd = d // heads
     xn = rmsnorm(params["norm"], x, cfg.norm_eps)
-    xg = torch.cat(
-        [torch.einsum("bsd,dk->bsk", xn, params[f"w_{g}"].to(COMPUTE_DTYPE))
-         + params[f"b_{g}"].to(COMPUTE_DTYPE) for g in GATES], dim=-1)
-    # (B,S,4D) in [z|i|f|o] x (head, hd) order -> (S, B, H, 4, hd) fp32
-    xg = xg.float().reshape(bsz, s, 4, heads, hd).permute(1, 0, 3, 2, 4)
-    r = _recurrent_weights(params, heads, hd)
-    if cache is not None:
-        carry = tuple(cache[k].reshape(bsz, heads, hd)
-                      for k in ("c", "n", "h", "m"))
+    ws = [params[f"{p}_{g}"].to(COMPUTE_DTYPE) for p in "wb" for g in GATES]
+
+    def gate_inputs(xn, *ws):
+        xg = torch.cat([torch.einsum("bsd,dk->bsk", xn, w) + b
+                        for w, b in zip(ws[:4], ws[4:])], dim=-1)
+        # (B,S,4D) in [z|i|f|o] x (head, hd) order -> (S, B, H, 4, hd) fp32
+        return xg.float().reshape(xn.shape[0], s, 4, heads, hd).permute(
+            1, 0, 3, 2, 4)
+    w = ws[0]
+    if isinstance(w, DTensor) \
+            and heads % mesh_sizes(w.device_mesh).get("model", 1):
+        # a model axis that does not divide the heads shards the gates'
+        # (head, hd) group, which no DTensor reshape can split: the gates
+        # are computed whole on every rank of it, as the recurrence is
+        xg = on_local_shards(gate_inputs, [(xn, 0, None),
+                                           *((t, None, None) for t in ws)],
+                             (1, 2), heads=heads)
     else:
-        zeros = torch.zeros((bsz, heads, hd), dtype=torch.float32,
-                            device=x.device)
+        xg = gate_inputs(xn, *ws)
+    if cache is not None:
+        carry = tuple(cache[k] for k in ("c", "n", "h", "m"))
+    else:
+        zeros = torch.zeros((bsz, d), dtype=torch.float32, device=x.device)
         carry = (zeros, zeros, zeros, torch.full_like(zeros, -math.inf))
     # the recurrence is independent per batch row and head: under a policy
-    # it runs on each rank's local shards
+    # it runs on each rank's local shards (its weights stacked there)
     h_seq, *carry = on_local_shards(
-        _slstm_scan, [(r, None, 0), (xg, 1, 2), *((t, 0, 1) for t in carry)],
+        _slstm_scan, [*((params[f"r_{g}"], None, 0) for g in GATES),
+                      (xg, 1, 2), *((t, 0, 1) for t in carry)],
         ((0, 2),) + ((0, 1),) * 4, heads=heads)     # h_seq (B,S,H,hd) fp32
     new_cache = {k: v.reshape(bsz, d) for k, v in zip(("c", "n", "h", "m"),
                                                        carry)}
     h_seq = rmsnorm(params["head_norm"], h_seq, cfg.norm_eps)
     out = torch.einsum("bsd,dk->bsk",
-                       h_seq.reshape(bsz, s, d).to(COMPUTE_DTYPE),
+                       merge_heads(h_seq).to(COMPUTE_DTYPE),
                        params["w_out"].to(COMPUTE_DTYPE))
     return shard(out, "batch", "seq", "act_embed"), new_cache
 

@@ -16,6 +16,8 @@ writes what the tests read.
   ``"pallas"`` (int and (B,) positions in turn), a ``"paged"`` step over
   pools adopted from the prompt pass, ``train_loss`` and its gradients,
   and the loss with ``use_flash``.
+* Reduced xlstm's ``train_loss`` gradients, every leaf, with fp64 params
+  and compute (see ``B_I_ABS``).
 * Reduced qwen3-moe with one KV head (not divisible by the model axis, so
   the decode kernel gathers whole heads), reduced jamba (Mamba's and the
   MoE's sites) and reduced xlstm (the mLSTM's and sLSTM's): a prompt pass
@@ -142,6 +144,46 @@ def _walk(model, params, caches, impl):
     return logits
 
 
+def _named_leaves(node, keys=()):
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from _named_leaves(v, keys + (k,))
+    elif isinstance(node, list):
+        for i, v in enumerate(node):
+            yield from _named_leaves(v, keys + (i,))
+    else:
+        yield "/".join(map(str, keys)), node
+
+
+def _grad_errors(model, policy, tokens):
+    """Each leaf's gradient of ``train_loss`` under the policy against the
+    unsharded one, both with fp64 params and compute: {leaf: [max|d|,
+    max|unsharded|, its norm]}."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.sharding.specs import device_put, param_shardings
+    params = model.init(torch.Generator().manual_seed(0), torch.float64,
+                        "cpu")
+    sp = device_put(params, param_shardings(params, policy))
+    L.COMPUTE_DTYPE = ssm_lib.COMPUTE_DTYPE = torch.float64
+    names = [n for n, _ in _named_leaves(params)]
+    for tree in (params, sp):
+        for t in _leaves(tree):
+            t.requires_grad_(True)
+    loss = model.train_loss(params, {"tokens": tokens})
+    grads = torch.autograd.grad(loss, list(_leaves(params)))
+    with use_policy(policy):
+        sloss = model.train_loss(sp, {"tokens": tokens})
+        sgrads = torch.autograd.grad(sloss, list(_leaves(sp)))
+    out = {}
+    for name, got, ref in zip(names, sgrads, grads):
+        got = got.full_tensor() if hasattr(got, "full_tensor") else got
+        out[name] = [float((got - ref).abs().max()), float(ref.abs().max()),
+                     float(ref.norm())]
+    L.COMPUTE_DTYPE = ssm_lib.COMPUTE_DTYPE = torch.float32
+    return out
+
+
 def _sharded_runs(rank, mesh):
     from repro_torch.models import layers as L
     from repro_torch.models import model as model_lib
@@ -193,6 +235,8 @@ def _sharded_runs(rank, mesh):
             res["decode_calls"] = calls["decode"][:1]
         moe_lib._route = routing.route
         res["agree"] = min(routing.agree, default=1.0)
+        if arch == "xlstm":
+            res["grads"] = _grad_errors(model, policy, tokens)
         if arch != "phi4":
             continue
         table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
@@ -319,6 +363,29 @@ def test_flash_kernel_takes_local_shards(sharded):
     (q, k, v), = res["flash_calls"]
     assert {q[0], k[0], v[0]} == {"Tensor"}
     assert q[1] == [1, 128, cfg.num_heads // 2, cfg.resolved_head_dim]
+
+
+# xLSTM's gradients are compared with fp64 params and compute: in fp32,
+# rounding alone moves its gate leaves by up to 1.8e-5 x their max (the
+# same model with its einsums rounded from fp64 instead), past REL; in fp64
+# the sharded gap is ~1e-6 (the gates stay fp32 on both sides).  The
+# sLSTM's input-gate bias gets a gradient of ~1e-9, the residue of terms
+# that cancel, which no relative bound can hold: it is held to B_I_ABS x
+# the largest leaf's gradient norm (~130) instead, where a fault would
+# show at the other gate biases' ~1e-2
+B_I_ABS = 1e-8
+
+
+def test_sharded_xlstm_grads_equal_unsharded(sharded):
+    grads = sharded["xlstm"]["grads"]
+    gates = [n for n in grads if n.endswith("/b_i")]
+    assert gates and len(grads) > len(gates)
+    for name, (diff, top, _) in grads.items():
+        if name not in gates:
+            assert diff <= REL * top, name
+    largest = max(norm for _, _, norm in grads.values())
+    for name in gates:
+        assert grads[name][0] <= B_I_ABS * largest, name
 
 
 @pytest.mark.parametrize("arch", ["qwen3", "jamba"])
