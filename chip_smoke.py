@@ -103,6 +103,21 @@ Phases, each of which fails the run (exit code 1) if it fails:
    cost counter, its roofline terms printed beside the step's CUDA-event
    time under the policy and without it and its device busy time, and the
    counter's eager-peak temps beside ``max_memory_allocated``.
+15. The engine fast-path benches (run after phase 13, on phase 3's model):
+   ``benchmarks/bench_torch_kernels.py`` holds K1-K3 at
+   ``bench_kernels.py``'s fp32 shapes (H = 8, K = 2, hd = 64; K3 at B 1,
+   S = T = 512, causal; K1 at B 8, T 2048; K2 over 8 x 8 pages of 16 from a
+   128-page pool) within TOL of their plain versions and times each beside
+   its plain version and SDPA; then every row of
+   ``benchmarks/bench_torch_engine_throughput.py`` runs on the model
+   (batched against sequential prefill, decode tokens/s for ``sdpa``,
+   ``pallas``, ``paged_sdpa`` and ``paged``, paged capacity with both rate
+   ratios and a flood, occupancy) with every kernel count set to 0 just
+   before: K1 and K2 launched once per layer and ``"pallas"`` / ``"paged"``
+   decode pass, K3 never, no decode window short of a live slot, and the
+   24-page pool admitting PAGED_ADMITTED requests, at least
+   MIN_PAGED_CAPACITY x the dense slots.  The timing gates are printed
+   beside their values; the bench's ``--check`` enforces them.
 
 It prints one JSON line of kernel records, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -132,6 +147,10 @@ LOSS_B, LOSS_S = 2, 2048           # the loss phase's batch
 # paths round P to bf16 before the product with V)
 LOSS_BOUND = 2e-3
 TRAIN_LAYERS = 16                  # of 32: fp32 params + grads + moments
+# requests the engine bench's 24-page pool admits (16-token prompts, 4 new
+# tokens): a count of lengths and pages only, pinned against the reference
+# bench by tests/test_torch_engine_bench.py
+PAGED_ADMITTED = 12
 
 
 # mangled-name parts of the bf16 instantiations on the main paths, whose
@@ -1698,6 +1717,114 @@ def paper_topologies():
               f"({per / 2**30:.3f} GiB; spec tables on meta tensors)")
 
 
+# ------------------------------------------------------------ phase 15 ---
+
+BENCH_SUFFIX = "_bench_fp32"             # bench_kernels.py's shapes
+
+
+def phase_engine_bench(torch, model, params, cfg, gpu, counters):
+    """Phase 15 (module docstring).  Returns the ``kernels`` records of
+    K1-K3 at ``bench_torch_kernels``'s shapes, each with its launches in
+    the engine rows (K3 runs in none)."""
+    import collections
+
+    from benchmarks import bench_torch_engine_throughput as bench
+    from benchmarks import bench_torch_kernels
+
+    print(f"phase 15 on {gpu}")
+    held = bench_torch_kernels.run()
+    records = []
+    for name in ("decode_attention", "paged_attention", "flash_attention"):
+        r = held[name]
+        check(r["agrees"] and r["max_abs_err"] <= TOL["float32"],
+              f"{name} at {r['shape']}: max err {r['max_abs_err']:.3g} "
+              f"past {TOL['float32']} of its plain version")
+        records.append(dict(
+            name=name + BENCH_SUFFIX, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+        print(f"{name}{BENCH_SUFFIX}: kernel {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+              f"max err {r['max_abs_err']:.3g} (fp32, {r['shape']})")
+
+    # the engine rows, with every decode pass counted by its impl
+    passes = collections.Counter()
+    inner = model.decode
+
+    def counted(*args, decode_impl="sdpa", **kw):
+        passes[decode_impl] += 1
+        return inner(*args, decode_impl=decode_impl, **kw)
+    model.decode = counted
+    for fn in counters:
+        fn.launches = 0
+    try:
+        out = bench.rows(model, params, cfg, "cuda")
+    finally:
+        del model.decode
+    launches = {fn.__name__: fn.launches for fn in counters}
+    layers = cfg.num_layers
+    for impl, kernel in (("pallas", "decode_attention"),
+                         ("paged", "paged_attention")):
+        check(passes[impl] > 0
+              and launches[kernel] == layers * passes[impl],
+              f"{impl}: {launches[kernel]} launches of {kernel} for "
+              f"{passes[impl]} decode passes of {layers} layers")
+        print(f"phase 15 {impl}: {launches[kernel]} {kernel} launches = "
+              f"{layers} layers x {passes[impl]} decode passes")
+    check(launches["flash_attention"] == 0,
+          f"the engine rows launched flash_attention: {launches}")
+
+    pre, paged, occ = out["prefill"], out["paged"], out["occupancy"]
+    check(paged["paged_admitted"] == PAGED_ADMITTED,
+          f"the 24-page pool admitted {paged['paged_admitted']}, not "
+          f"{PAGED_ADMITTED}")
+    check(paged["capacity_ratio"] >= bench.MIN_PAGED_CAPACITY,
+          f"paged capacity {paged['capacity_ratio']:.2f}x < "
+          f"{bench.MIN_PAGED_CAPACITY}x")
+    for label, point in (("short_d16", pre["gated"]),
+                         ("parity_d8", pre["parity_scale"])):
+        print(f"phase 15 prefill {label}: batched "
+              f"{point['batched_tokens_per_s']:.1f} tokens/s, sequential "
+              f"{point['sequential_tokens_per_s']:.1f}, speedup "
+              f"{point['batched_speedup']:.3f}x"
+              + (f" (gate >= {bench.MIN_PREFILL_SPEEDUP}x)"
+                 if label == "short_d16" else " (not gated)")
+              + f", {point['batches']} batches, {point['padded_tokens']} "
+              f"padded tokens")
+    print("phase 15 decode tokens/s at 4 slots: " + ", ".join(
+        f"{impl} {r['tokens_per_s']:.1f}" for impl, r in out["decode"].items()))
+    print(f"phase 15 paged rate at matched width: paged_sdpa/sdpa "
+          f"{paged['rate_ratio']:.3f} (gate >= {bench.MIN_PAGED_RATE}), "
+          f"paged/pallas {paged['kernel_rate_ratio']:.3f} (kernels, not "
+          f"gated); tokens/s " + ", ".join(
+              f"{k} {v:.1f}" for k, v in paged["decode_tokens_per_s"].items()))
+    print(f"phase 15 paged capacity: {paged['paged_admitted']} requests in "
+          f"{paged['pool_pages']} pages against {paged['dense_slots']} dense "
+          f"slots = {paged['capacity_ratio']:.2f}x (gate >= "
+          f"{bench.MIN_PAGED_CAPACITY}x); KV bytes a request "
+          f"{paged['kv_hbm_bytes_per_active_request']:.0f} against "
+          f"{paged['dense_kv_hbm_bytes_per_request']}; pool utilization at "
+          f"capacity {paged['pool_utilization_at_capacity']:.3f}")
+    flood = paged["flood"]
+    print(f"phase 15 flood ({flood['requests']} requests, "
+          f"{flood['pool_pages']} pages): utilization histogram "
+          f"{flood['utilization_histogram']}, mean "
+          f"{flood['mean_pool_utilization']:.3f}, peak "
+          f"{flood['peak_pool_utilization']:.3f}")
+    print(f"phase 15 occupancy ({occ['requests']} requests, 2 x 2 slots): "
+          f"active-slot histogram {occ['histogram']} over {occ['ticks']} "
+          f"ticks, mean busy fill {occ['mean_busy_fill']:.3f}, prefill "
+          f"{occ['prefill_batches']} batches / "
+          f"{occ['prefill_batched_requests']} batched requests, "
+          f"{occ['wall_s']:.3f} s")
+    records[0]["launches"] = launches["decode_attention"]
+    records[1]["launches"] = launches["paged_attention"]
+    records[2]["launches"] = 0                 # not on a serving path
+    return records
+
+
 # ------------------------------------------------------------ phase 14 ---
 
 # the dry run's cells: (arch, shape) on the fake 256-rank (16, 16) mesh
@@ -2008,6 +2135,10 @@ def main() -> int:
                                  counters))
     print(f"phase 13: sharded walk and compressed all-reduce on a one-rank "
           f"mesh ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    records += phase_engine_bench(torch, model, params, cfg, gpu, counters)
+    print(f"phase 15: kernel and engine fast-path benches "
+          f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     records.append(phase_flash(torch, F))
     print(f"phase 5: flash kernel agrees with its plain version "

@@ -441,3 +441,28 @@ def test_sharded_walk_on_a_one_rank_nccl_mesh(dev, tmp_path, name, kw):
                    zip(got + got_err, want + want_err))
     finally:
         dist.destroy_process_group()
+
+
+def test_kernel_bench_holds_every_kernel(dev, tmp_path, monkeypatch):
+    """``benchmarks/bench_torch_kernels.py`` at ``bench_kernels.py``'s fp32
+    shapes: every kernel within 2e-5 of its plain version, and every time
+    positive (its report goes to ``tmp_path``)."""
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    monkeypatch.syspath_prepend(str(root))
+    from benchmarks import bench_torch_kernels, common
+    monkeypatch.setattr(common, "REPORT_DIR", tmp_path)
+    before = {fn: fn.launches for fn in (dops.decode_attention,
+                                         pops.paged_attention,
+                                         fops.flash_attention)}
+    results = bench_torch_kernels.run()
+    assert results["device"] and "chip_smoke" in sys.modules
+    for name in ("flash_attention", "decode_attention", "paged_attention"):
+        r = results[name]
+        assert r["agrees"] and r["max_abs_err"] <= TOL[torch.float32], name
+        assert min(r["ms"], r["plain_ms"], r["library_ms"],
+                   r["bound_ms"]) > 0, name
+    assert all(fn.launches > n for fn, n in before.items())
+    assert (tmp_path / "bench_torch_kernels.json").is_file()

@@ -1,7 +1,8 @@
 """What the port may import, and where its entry points run.
 
-The port (``src/repro_torch``) and ``chip_smoke.py`` must run on a machine
-without JAX: nothing in them imports ``jax``, ``jaxlib``, ``ml_dtypes`` or
+The port (``src/repro_torch``), its benchmarks and examples
+(``benchmarks/bench_torch_*.py``, ``examples/torch_*.py``) and
+``chip_smoke.py`` must run on a machine without JAX: nothing in them imports ``jax``, ``jaxlib``, ``ml_dtypes`` or
 the JAX package ``repro``.  Its entry points run on ``cuda`` unless the
 caller names another device, and with no CUDA device they raise instead of
 quietly running on the CPU.
@@ -33,7 +34,11 @@ FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
 def _port_files():
+    """The port's package, ``chip_smoke.py``, and the port's benchmarks and
+    examples: all of them run on the card's machine, which has no JAX."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files += sorted((ROOT / "benchmarks").glob("bench_torch_*.py"))
+    files += sorted((ROOT / "examples").glob("torch_*.py"))
     return files + [ROOT / "chip_smoke.py"]
 
 
@@ -48,6 +53,9 @@ def _imported(tree):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 20
+    names = {p.name for p in files}
+    assert {"bench_torch_engine_throughput.py", "bench_torch_kernels.py",
+            "torch_quickstart.py"} <= names
     bad = []
     for path in files:
         for name in _imported(ast.parse(path.read_text(), str(path))):
