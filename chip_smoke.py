@@ -24,11 +24,16 @@ Phases, each of which fails the run (exit code 1) if it fails:
 5. The flash-attention kernel of the teacher-forced loss against its plain
    version over fp32/bf16, G 1..8, hd 32/64/96/128, causal or not and
    ragged S <= T (with S*G off the kernel's 128-row blocks and S = 1 over
-   an offset cache), then at the loss's shape (B=2, S=T=2048, H=24, K=8,
-   hd=128), timed beside ``scaled_dot_product_attention``.
+   an offset cache); then its fp32 body at the edges of its tasks (S*G one
+   short of, at and one past its 64-row blocks, key ranges one short of,
+   at and one past a chunk and two, S = 1 over T - S = 37), each launched
+   twice and bit-equal, and one chunk against many on the same inputs;
+   then at the loss's shape (B=2, S=T=2048, H=24, K=8, hd=128), bf16 and
+   fp32 each timed beside ``scaled_dot_product_attention``.
 6. ``Model.train_loss`` on the full model at B=2, S=2048 with
-   ``use_flash=True`` (32 flash launches, no decode kernel) and without
-   (no kernel at all); the two losses agree within LOSS_BOUND.
+   ``use_flash=True`` (32 flash launches, no decode kernel; its fp32 flash
+   launches, counted apart, are the ``flash_attention_fp32`` record's) and
+   without (no kernel at all); the two losses agree within LOSS_BOUND.
 7. ``Trainer`` on Phi-4-mini at full width and 16 of its 32 layers (fp32
    params, grads and Adam moments, ~45 GB): 1 warm-up and 3 measured steps
    at B=1, S=2048 with remat; finite losses, a nonzero gradient norm,
@@ -114,7 +119,9 @@ Phases, each of which fails the run (exit code 1) if it fails:
    ``pallas``, ``paged_sdpa`` and ``paged``, paged capacity with both rate
    ratios and a flood, occupancy) with every kernel count set to 0 just
    before: K1 and K2 launched once per layer and ``"pallas"`` / ``"paged"``
-   decode pass, K3 never, no decode window short of a live slot, and the
+   decode pass, K3 never (its fp32 launches, counted apart, are the
+   ``flash_attention_bench_fp32`` record's), no decode window short of a
+   live slot, and the
    24-page pool admitting PAGED_ADMITTED requests, at least
    MIN_PAGED_CAPACITY x the dense slots.  The timing gates are printed
    beside their values; the bench's ``--check`` enforces them.
@@ -153,9 +160,9 @@ TRAIN_LAYERS = 16                  # of 32: fp32 params + grads + moments
 PAGED_ADMITTED = 12
 
 
-# mangled-name parts of the bf16 instantiations on the main paths, whose
-# ptxas report phase 1 prints in full
-MAIN_KERNELS = {"flash_attention": "flash_bf16_kernel",
+# mangled-name parts of the kernels whose ptxas report phase 1 prints in
+# full: the bf16 instantiations on the main paths, and K3's fp32 body
+MAIN_KERNELS = {"flash_attention": ("flash_bf16_kernel", "flash_f32_"),
                 "paged_attention": "paged_split_kernelI13__nv_bfloat16Li3ELi128E",
                 "decode_attention": "dense_split_kernelI13__nv_bfloat16Li3ELi128E"}
 # each kernel's source files, its own first, as the `kernels` line names them
@@ -164,7 +171,8 @@ _SPLIT = ("decode_split.cuh", "decode_attention_common.cuh", "hopper.cuh")
 SOURCES = {name: ", ".join(_CSRC + f for f in files) for name, files in {
     "decode_attention": ("decode_attention.cu", *_SPLIT),
     "paged_attention": ("paged_attention.cu", *_SPLIT),
-    "flash_attention": ("flash_attention.cu", "hopper.cuh")}.items()}
+    "flash_attention": ("flash_attention.cu", "flash_attention_f32.cuh",
+                        "hopper.cuh")}.items()}
 REPLACES = {
     "decode_attention":
         "src/repro/kernels/decode_attention/decode_attention.py:61",
@@ -172,15 +180,31 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:80"}
 
 
-def ptxas_lines(log: str, needle: str):
-    """ptxas's lines for the kernels whose name holds ``needle``, every
-    warning, and every note that it serialised ``wgmma``."""
+def ptxas_lines(log: str, needle):
+    """ptxas's lines for the kernels whose name holds ``needle`` (a string
+    or a tuple of them), every warning, and every note that it serialised
+    ``wgmma``."""
+    needles = (needle,) if isinstance(needle, str) else needle
     keep = False
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            keep = needle in line
+            keep = any(n in line for n in needles)
         if keep or "warning" in line.lower() or "Performance Loss" in line:
             yield line.strip()
+
+
+def spill_stores(log: str, needle: str):
+    """{kernel: bytes of spill stores} for the kernels of a ptxas report
+    whose mangled name holds ``needle``."""
+    out, name = {}, None
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '(\w+)'", line)
+        if hit:
+            name = hit.group(1) if needle in hit.group(1) else None
+        stores = re.search(r"(\d+) bytes spill stores", line)
+        if name and stores:
+            out[name] = int(stores.group(1))
+    return out
 
 
 def peaks():
@@ -499,14 +523,82 @@ def phase_flash(torch, F):
     print(f"K3 flash_attention: {n} sweep cases agree (G 1..8, hd "
           f"{fops.HEAD_DIMS}, causal and not, T - S in (0, 37); S*G off "
           f"the 128-row blocks for G 3/5/6/7; S = 1 with T - S = 37)")
-    return time_flash(torch, F, gen, LOSS_B, LOSS_S, 24, 8, 128)
+    hold_f32_split(torch, fops, gen)
+    return time_flash(torch, F, gen, LOSS_B, LOSS_S, 24, 8, 128,
+                      timed=(torch.bfloat16, torch.float32))
 
 
-def time_flash(torch, F, gen, b, s, h, kh, hd, suffix=""):
+def hold_f32_split(torch, fops, gen):
+    """K3's fp32 body at the edges of its tasks, each case launched twice
+    (bit-equal: the body keeps no state between calls) and held to the
+    plain version: S*G one short of, at and one past its 64-row blocks
+    (and two), key ranges one short of, at and one past a chunk (and two)
+    in a split launch, S = 1 over T - S = 37; then one chunk of all the
+    keys (``flash_attention_f32_launch`` with one slot a row block and no
+    scratch) against the plan's many on the same inputs at
+    ``bench_kernels.py``'s shape."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    f32 = torch.float32
+    rows = fops.F32_ROWS
+    cases = [(1, s, s + extra, g, 64)                # (B, S, T, G, hd)
+             for g, s in ((1, rows - 1), (1, rows), (1, rows + 1),
+                          (3, rows // 3), (3, rows // 3 + 1),
+                          (1, 2 * rows - 1), (1, 2 * rows),
+                          (1, 2 * rows + 1))
+             for extra in (0, 37)]
+    # one 64-row block (S = 16, G = 4) over T keys: a split of chunk keys
+    s, g = rows // 4, 4
+    chunk = fops.split_plan(1, s, 4 * rows, 2, g, 64, True, sms).chunk
+    for t in (chunk - 1, chunk, chunk + 1, 2 * chunk - 1, 2 * chunk,
+              2 * chunk + 1):
+        plan = fops.split_plan(1, s, t, 2, g, 64, True, sms)
+        check(plan.chunk == chunk and plan.chunks == -(-t // chunk),
+              f"fp32 split of {t} keys: chunk {plan.chunk} x "
+              f"{plan.chunks}, expected chunks of {chunk}")
+        cases += [(1, s, t, g, d) for d in fops.HEAD_DIMS]
+    cases += [(2, 1, 38, g, d) for g in (1, 4, 8) for d in (64, 128)]
+    n = 0
+    for b, s, t, g, d in cases:
+        for causal in (True, False):
+            q, k, v = flash_inputs(torch, gen, b, s, t, 2 * g, 2, d, f32)
+            first = fops.flash_attention(q, k, v, causal=causal)
+            again = fops.flash_attention(q, k, v, causal=causal)
+            check(torch.equal(first, again),
+                  f"fp32 K3 B={b} S={s} T={t} G={g} hd={d}: two launches "
+                  f"differ")
+            max_err(torch, first, fops.flash_attention_plain(
+                q, k, v, causal=causal), f32)
+            n += 1
+    # one chunk against many on the same inputs
+    q, k, v = flash_inputs(torch, gen, 1, 512, 512, 8, 2, 64, f32)
+    plan = fops.split_plan(1, 512, 512, 2, 4, 64, True, sms)
+    check(plan.chunks > 1, f"bench shape not split: {plan}")
+    want = fops.flash_attention_plain(q, k, v)
+    many = fops.flash_attention(q, k, v)
+    one = torch.empty_like(q)
+    lib, fn = fops._f32_launcher()
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), one.data_ptr(), None,
+            1, 512, 512, 2, 4, 64, 1, 512, 1,
+            torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"fp32 K3 in one chunk: launch returned {rc}")
+    err_many, err_one = (max_err(torch, x, want, f32) for x in (many, one))
+    torch.cuda.synchronize()
+    print(f"K3 fp32 split edges: {n} cases agree and repeat bit for bit "
+          f"(S*G around {rows}-row blocks, keys around chunks of {chunk}, "
+          f"S = 1 over 38 keys); one chunk against {plan.chunks} of "
+          f"{plan.chunk} keys at B=1 S=T=512 H=8 K=2 hd=64: max err "
+          f"{err_one:.3g} and {err_many:.3g}, max difference "
+          f"{float((one - many).abs().max()):.3g}")
+
+
+def time_flash(torch, F, gen, b, s, h, kh, hd, suffix="", timed=None):
     """K3 at a loss's shape (B = ``b``, S = T = ``s``, ``h`` query heads over
     ``kh`` KV heads of ``hd``, causal): held against its plain version in
-    fp32 and bf16, then bf16 timed beside the plain version and SDPA.
-    Returns the kernel record, named with ``suffix``."""
+    fp32 and bf16, then each dtype in ``timed`` (bf16 by default) timed
+    beside the plain version and SDPA (TF32 off, as ``main`` sets it).
+    Returns a kernel record a timed dtype, named ``flash_attention`` (bf16)
+    or ``flash_attention_fp32``, with ``suffix``; the caller adds its
+    launches."""
     from repro_torch.kernels.flash_attention import ops as fops
 
     err = {}
@@ -519,36 +611,43 @@ def time_flash(torch, F, gen, b, s, h, kh, hd, suffix=""):
         del args
     torch.cuda.synchronize()
 
-    dt = torch.bfloat16
-    # sets of q, k and v together beyond the 50 MB L2
-    per_set = (2 * b * s * h * hd + 2 * b * s * kh * hd) * 2
-    sets = [flash_inputs(torch, gen, b, s, s, h, kh, hd, dt)
-            for _ in range(max(4, -(-150_000_000 // per_set)))]
-    lib_sets = [tuple(x.transpose(1, 2) for x in st) for st in sets]
     sdpa = lambda q, k, v: F.scaled_dot_product_attention(  # noqa: E731
         q, k, v, is_causal=True, enable_gqa=True)
-    moved = sum(x.numel() for x in sets[0]) * 2 + sets[0][0].numel() * 2
     pairs = s * (s + 1) // 2                  # causal (query, key) pairs
-    bytes_ms = moved / peaks().HBM_BW * 1e3
-    ops_ms = 4 * b * h * hd * pairs / peaks().PEAK_FLOPS * 1e3
-    rec = dict(
-        name="flash_attention" + suffix, route="cuda",
-        source=SOURCES["flash_attention"],
-        replaces=REPLACES["flash_attention"],
-        max_abs_err=err[dt],
-        ms=time_ms(torch, fops.flash_attention, sets),
-        plain_ms=time_ms(torch, fops.flash_attention_plain, sets, reps=20),
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=time_ms(torch, sdpa, lib_sets))
-    print(f"{rec['name']}: kernel {rec['ms']:.4f} ms, bound "
-          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; bytes "
-          f"{bytes_ms:.4f} ms), plain {rec['plain_ms']:.4f} ms, library "
-          f"{rec['library_ms']:.4f} ms (bf16, B={b}, S=T={s}, H={h}, K={kh},"
-          f" hd={hd}, causal)")
-    del sets, lib_sets
-    torch.cuda.empty_cache()
-    return rec
+    records = []
+    for dt in timed or (torch.bfloat16,):
+        size = torch.finfo(dt).bits // 8
+        # sets of q, k and v together beyond the 50 MB L2
+        per_set = (2 * b * s * h * hd + 2 * b * s * kh * hd) * size
+        sets = [flash_inputs(torch, gen, b, s, s, h, kh, hd, dt)
+                for _ in range(max(4, -(-150_000_000 // per_set)))]
+        lib_sets = [tuple(x.transpose(1, 2) for x in st) for st in sets]
+        moved = (sum(x.numel() for x in sets[0]) + sets[0][0].numel()) * size
+        bytes_ms = moved / peaks().HBM_BW * 1e3
+        peak = peaks().FP32_FLOPS if dt == torch.float32 else \
+            peaks().PEAK_FLOPS
+        ops_ms = 4 * b * h * hd * pairs / peak * 1e3
+        fp32 = dt == torch.float32
+        rec = dict(
+            name="flash_attention" + ("_fp32" if fp32 else "") + suffix,
+            route="cuda", source=SOURCES["flash_attention"],
+            replaces=REPLACES["flash_attention"],
+            max_abs_err=err[dt],
+            ms=time_ms(torch, fops.flash_attention, sets),
+            plain_ms=time_ms(torch, fops.flash_attention_plain, sets,
+                             reps=20),
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            library_ms=time_ms(torch, sdpa, lib_sets))
+        print(f"{rec['name']}: kernel {rec['ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; bytes "
+              f"{bytes_ms:.4f} ms), plain {rec['plain_ms']:.4f} ms, library "
+              f"{rec['library_ms']:.4f} ms ({str(dt)[6:]}, B={b}, S=T={s}, "
+              f"H={h}, K={kh}, hd={hd}, causal)")
+        records.append(rec)
+        del sets, lib_sets
+        torch.cuda.empty_cache()
+    return records
 
 
 # ------------------------------------------------------------- phase 6 ---
@@ -556,7 +655,10 @@ def time_flash(torch, F, gen, b, s, h, kh, hd, suffix=""):
 def phase_loss(torch, model, params, cfg, counters, batch):
     """``model.train_loss`` on ``batch`` with and without the flash kernel:
     K3 launched once per layer with it, no kernel without it, the losses
-    within LOSS_BOUND.  Returns the kernels' launches."""
+    within LOSS_BOUND.  Returns the kernels' launches, with the fp32 flash
+    launches of the ``use_flash=True`` run as ``flash_attention_fp32``."""
+    from repro_torch.kernels import flash_attention
+
     shape = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
     losses, launches_of = {}, {}
     for flash in (True, False):
@@ -566,9 +668,11 @@ def phase_loss(torch, model, params, cfg, counters, batch):
             torch.cuda.synchronize()
             for fn in counters:
                 fn.launches = 0
+            flash_attention.launches_f32 = 0
             loss = model.train_loss(params, batch)
             torch.cuda.synchronize()
             launches = {fn.__name__: fn.launches for fn in counters}
+            f32_launches = flash_attention.launches_f32
             t0 = time.perf_counter()
             for _ in range(3):
                 model.train_loss(params, batch)
@@ -585,9 +689,11 @@ def phase_loss(torch, model, params, cfg, counters, batch):
               f"expected {want}")
         losses[flash] = value
         launches_of.update({k: v for k, v in launches.items() if v})
+        if flash:
+            launches_of["flash_attention_fp32"] = f32_launches
         print(f"loss {cfg.name} use_flash={flash}: {value:.6f} ({shape}, "
               f"{cfg.num_layers} layers), {wall * 1e3:.1f} ms per call, "
-              f"launches {launches}")
+              f"launches {launches}, of them fp32 flash {f32_launches}")
     gap = abs(losses[True] - losses[False])
     check(gap < LOSS_BOUND, f"flash and plain losses differ by {gap:.4g} "
           f">= {LOSS_BOUND}")
@@ -1268,8 +1374,8 @@ def phase_multimodal(torch, F, counters, gpu):
         torch, F, gen, encdec.num_heads, encdec.num_kv_heads,
         encdec.resolved_head_dim, "_g1_hd64", paged=False,
         max_len=ENCDEC_MAX_LEN, lens=ENCDEC_LENS)
-    k3_vlm = time_flash(torch, F, gen, 1, VLM_LOSS_S, vlm.num_heads,
-                        vlm.num_kv_heads, vlm.resolved_head_dim, "_g1_hd96")
+    k3_vlm, = time_flash(torch, F, gen, 1, VLM_LOSS_S, vlm.num_heads,
+                         vlm.num_kv_heads, vlm.resolved_head_dim, "_g1_hd96")
     print(f"{k2_vlm['name']}: not on a path (paged decode is refused for "
           f"the VLM), held and timed only")
 
@@ -1730,6 +1836,7 @@ def phase_engine_bench(torch, model, params, cfg, gpu, counters):
 
     from benchmarks import bench_torch_engine_throughput as bench
     from benchmarks import bench_torch_kernels
+    from repro_torch.kernels import flash_attention
 
     print(f"phase 15 on {gpu}")
     held = bench_torch_kernels.run()
@@ -1759,11 +1866,13 @@ def phase_engine_bench(torch, model, params, cfg, gpu, counters):
     model.decode = counted
     for fn in counters:
         fn.launches = 0
+    flash_attention.launches_f32 = 0
     try:
         out = bench.rows(model, params, cfg, "cuda")
     finally:
         del model.decode
     launches = {fn.__name__: fn.launches for fn in counters}
+    f32_launches = flash_attention.launches_f32
     layers = cfg.num_layers
     for impl, kernel in (("pallas", "decode_attention"),
                          ("paged", "paged_attention")):
@@ -1821,7 +1930,7 @@ def phase_engine_bench(torch, model, params, cfg, gpu, counters):
           f"{occ['wall_s']:.3f} s")
     records[0]["launches"] = launches["decode_attention"]
     records[1]["launches"] = launches["paged_attention"]
-    records[2]["launches"] = 0                 # not on a serving path
+    records[2]["launches"] = f32_launches      # fp32 K3 in the engine rows
     return records
 
 
@@ -2105,6 +2214,13 @@ def main() -> int:
               f"(largest {max(spills, default=0)} bytes)")
         for line in ptxas_lines(log, MAIN_KERNELS.get(name, "\0")):
             print(f"    {line}")
+    # K3's fp32 body and its merge at hd 32/64/96/128: none may spill
+    f32 = spill_stores(paths["flash_attention"].with_suffix(".log")
+                       .read_text(), "flash_f32_")
+    check(len(f32) == 8 and not any(f32.values()),
+          f"fp32 flash kernels: spill stores {f32}")
+    print(f"  flash_attention fp32: {len(f32)} kernels, 0 bytes of spill "
+          f"stores")
 
     t0 = time.perf_counter()
     records = phase_kernels(torch, F)
@@ -2140,7 +2256,7 @@ def main() -> int:
     print(f"phase 15: kernel and engine fast-path benches "
           f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    records.append(phase_flash(torch, F))
+    records += phase_flash(torch, F)
     print(f"phase 5: flash kernel agrees with its plain version "
           f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()

@@ -59,8 +59,12 @@
 // hd = 64 and 128 use 128-byte swizzled chunks of 64 columns; hd = 32 and
 // 96 use 64-byte chunks of 32.  Rows past S*G load zeros and are not
 // written.
-// fp32: no tensor-core path keeps fp32 accuracy, so one thread owns one row
-// and runs the same loop in scalar fp32, 32 keys per tile, 64 rows a block.
+// fp32 (flash_attention_f32.cuh): no tensor-core type keeps fp32's 2e-5, so
+// the products run on the CUDA cores, bound by fp32 FMAs: 64-row tasks on
+// 128 threads with register micro-tiles fed by float4 shared-memory loads,
+// cp.async double-buffered K/V tiles, and each row block's keys split into
+// chunks merged by a second kernel where the row blocks alone would leave
+// SMs idle.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,7 +75,6 @@
 
 namespace flash_attn {
 
-constexpr int kRows = 64;          // fp32: flattened (query, head) rows per block
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kUnsupported = -1;   // returned for a (dtype, hd) not built
@@ -527,100 +530,11 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tmap_k,
   }
 }
 
-// ------------------------------------------------------------------ fp32 --
+}  // namespace flash_attn
 
-constexpr int kScalarThreads = kRows;   // one row per thread
-constexpr int kScalarKeys = 32;
+#include "flash_attention_f32.cuh"   // fp32 body
 
-template <int HD>
-__global__ void __launch_bounds__(kScalarThreads)
-flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out,
-                 Problem p, float scale) {
-  constexpr int C4 = HD / 4;   // float4 chunks per row
-  __shared__ __align__(16) float sk[kScalarKeys][HD];
-  __shared__ __align__(16) float sv[kScalarKeys][HD];
-
-  const int b = blockIdx.z;
-  const int kvh = blockIdx.y;
-  const int r0 = blockIdx.x * kRows;
-  const int r = r0 + threadIdx.x;
-  const bool valid = r < p.seq_q * p.group;
-  const int lim = valid ? r / p.group + (p.seq_kv - p.seq_q) : -1;
-  const int64_t orow = valid ? row_offset(b, r, kvh, p, HD) : 0;
-
-  float acc[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) acc[d] = 0.f;
-  float m = kNegInf, l = 0.f;
-
-  const int n_keys = keys_needed(r0, kRows, p);
-  for (int t0 = 0; t0 < n_keys; t0 += kScalarKeys) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kScalarKeys * C4; i += kScalarThreads) {
-      const int row = i / C4;
-      const int c = (i - row * C4) * 4;
-      const int t = t0 + row;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vx = kx;
-      if (t < n_keys) {
-        const int64_t base = kv_offset(b, t, kvh, p, HD) + c;
-        kx = *reinterpret_cast<const float4*>(k + base);
-        vx = *reinterpret_cast<const float4*>(v + base);
-      }
-      *reinterpret_cast<float4*>(&sk[row][c]) = kx;
-      *reinterpret_cast<float4*>(&sv[row][c]) = vx;
-    }
-    __syncthreads();
-
-    float s[kScalarKeys];
-#pragma unroll
-    for (int j = 0; j < kScalarKeys; ++j) s[j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < HD; d += 4) {
-      const float4 qv = valid ? *reinterpret_cast<const float4*>(q + orow + d)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int j = 0; j < kScalarKeys; ++j) {
-        s[j] = fmaf(qv.x, sk[j][d], s[j]);
-        s[j] = fmaf(qv.y, sk[j][d + 1], s[j]);
-        s[j] = fmaf(qv.z, sk[j][d + 2], s[j]);
-        s[j] = fmaf(qv.w, sk[j][d + 3], s[j]);
-      }
-    }
-    float mx = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kScalarKeys; ++j) {
-      const int col = t0 + j;
-      const bool ok = col < n_keys && (!p.causal || col <= lim);
-      s[j] = ok ? s[j] * scale : kNegInf;
-      mx = fmaxf(mx, s[j]);
-    }
-    const float mn = fmaxf(m, mx);
-    const float alpha = expf(m - mn);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kScalarKeys; ++j) {
-      s[j] = expf(s[j] - mn);
-      psum += s[j];
-    }
-    l = l * alpha + psum;
-    m = mn;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      float a = acc[d] * alpha;
-#pragma unroll
-      for (int j = 0; j < kScalarKeys; ++j) a = fmaf(s[j], sv[j][d], a);
-      acc[d] = a;
-    }
-  }
-
-  if (valid) {
-    const float den = fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int d = 0; d < HD; ++d) out[orow + d] = acc[d] / den;
-  }
-}
+namespace flash_attn {
 
 // Tensor map of k or v viewed as (B, T, K * hd), innermost first: boxes of
 // (CW columns, kBlockN keys, 1 batch), swizzled as wgmma reads them; keys
@@ -688,13 +602,6 @@ template <int HD>
 int launch(int dtype, const void* q, const void* k, const void* v, void* out,
            const Problem& p, int batch, cudaStream_t stream) {
   const float scale = 1.f / sqrtf(static_cast<float>(HD));
-  if (dtype == 0) {
-    const dim3 grid((p.seq_q * p.group + kRows - 1) / kRows, p.num_kv, batch);
-    flash_f32_kernel<HD><<<grid, kScalarThreads, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), p, scale);
-    return static_cast<int>(cudaGetLastError());
-  }
   if (dtype == 1)
     return launch_bf16<HD>(q, k, v, out, p, batch, scale * kLog2e, stream);
   return kUnsupported;
@@ -702,9 +609,10 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
 
 }  // namespace flash_attn
 
-// dtype: 0 = fp32, 1 = bf16.  Returns 0, a cudaError_t, -1 for a
-// (dtype, head_dim) that is not built, or -2 when the driver refuses a
-// tensor map (see flash_attention_error_string).
+// dtype: 1 = bf16 (fp32 runs through flash_attention_f32_launch; 0 is
+// refused).  Returns 0, a cudaError_t, -1 for a (dtype, head_dim) that is
+// not built, or -2 when the driver refuses a tensor map (see
+// flash_attention_error_string).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int batch,
                                       int seq_q, int seq_kv, int num_kv,
@@ -722,8 +630,40 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   }
 }
 
+// fp32 with split keys: `chunk` keys a task and `chunks` task slots a row
+// block of 64 flattened rows, as kernels/flash_attention/ops.py's
+// split_plan gives them; `partial` is fp32 scratch of B * K * row blocks *
+// chunks * 64 * (head_dim + 2) elements when chunks > 1 (else unused).
+// Returns 0, a cudaError_t, -1 for a head_dim that is not built, or -3 for
+// a split that does not cover the keys or lacks its scratch.
+extern "C" int flash_attention_f32_launch(const void* q, const void* k,
+                                          const void* v, void* out,
+                                          void* partial, int batch,
+                                          int seq_q, int seq_kv, int num_kv,
+                                          int group, int head_dim, int causal,
+                                          int chunk, int chunks,
+                                          void* stream) {
+  using namespace flash_attn;
+  const Problem p{seq_q, seq_kv, num_kv, group, causal};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* fq = static_cast<const float*>(q);
+  const float* fk = static_cast<const float*>(k);
+  const float* fv = static_cast<const float*>(v);
+  float* fo = static_cast<float*>(out);
+  float* fp = static_cast<float*>(partial);
+  switch (head_dim) {
+    case 32: return launch_f32<32>(fq, fk, fv, fo, fp, p, batch, chunk, chunks, st);
+    case 64: return launch_f32<64>(fq, fk, fv, fo, fp, p, batch, chunk, chunks, st);
+    case 96: return launch_f32<96>(fq, fk, fv, fo, fp, p, batch, chunk, chunks, st);
+    case 128: return launch_f32<128>(fq, fk, fv, fo, fp, p, batch, chunk, chunks, st);
+    default: return kUnsupported;
+  }
+}
+
 extern "C" const char* flash_attention_error_string(int code) {
   static char msg[96];
+  if (code == flash_attn::kBadSplit)
+    return "the fp32 split misses keys or has no scratch";
   if (code == flash_attn::kTensorMapError) {
     snprintf(msg, sizeof(msg), "cuTensorMapEncodeTiled failed (CUresult %d)",
              static_cast<int>(flash_attn::g_tensor_map_error));

@@ -83,6 +83,71 @@ def test_decode_kernel_split_edges_and_repeated_calls(dev, edge, dtype):
         assert torch.all(first[0] == 0)
 
 
+# (B, S, T, G, hd) at the fp32 flash body's task edges: S*G one short of,
+# at and one past a 64-row block; one row block over keys one short of, at
+# and one past a 64-key chunk and two; one query over T - S = 37
+F32_EDGES = {
+    "rows": [(1, 63, 63, 1, 64), (1, 64, 101, 1, 64), (2, 65, 65, 1, 32)],
+    "keys": [(1, 16, t, 4, hd) for t in (63, 64, 65, 127, 128, 129)
+             for hd in (64, 128)],
+    "s1": [(2, 1, 38, g, hd) for g in (1, 8) for hd in (96, 128)],
+}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("edge", list(F32_EDGES))
+def test_flash_f32_split_edges_and_repeated_calls(dev, edge, causal):
+    """K3's fp32 body where its tasks end: each case launched twice on the
+    same inputs (bit-equal: no state between calls) and held to the plain
+    version; the launch splits keys wherever its plan says so."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for i, (b, s, t, g, hd) in enumerate(F32_EDGES[edge]):
+        rng = np.random.default_rng(100 * i + t)
+        q = _t(rng, (b, s, 2 * g, hd), torch.float32, dev)
+        k, v = (_t(rng, (b, t, 2, hd), torch.float32, dev) for _ in range(2))
+        plan = fops.split_plan(b, s, t, 2, g, hd, causal, sms)
+        if edge == "keys":
+            assert plan.chunks == -(-t // plan.chunk) and plan.chunk == 64
+        before = (fops.flash_attention.launches,
+                  fops.flash_attention.launches_f32)
+        first = fops.flash_attention(q, k, v, causal=causal)
+        again = fops.flash_attention(q, k, v, causal=causal)
+        assert (fops.flash_attention.launches,
+                fops.flash_attention.launches_f32) == (before[0] + 2,
+                                                       before[1] + 2)
+        assert torch.equal(first, again)
+        torch.testing.assert_close(first, fops.flash_attention_plain(
+            q, k, v, causal=causal), atol=2e-5, rtol=2e-5)
+
+
+def test_flash_f32_one_chunk_against_many(dev):
+    """bench_kernels.py's shape through the plan's split (8 chunks of 64
+    keys) and in one chunk of all 512 keys (``flash_attention_f32_launch``
+    with one slot a row block and no scratch): both within 2e-5 of the
+    plain version.  A bf16 launch does not count as an fp32 one, and the
+    bf16 entry refuses fp32."""
+    rng = np.random.default_rng(23)
+    q = _t(rng, (1, 512, 8, 64), torch.float32, dev)
+    k, v = (_t(rng, (1, 512, 2, 64), torch.float32, dev) for _ in range(2))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert fops.split_plan(1, 512, 512, 2, 4, 64, True, sms).chunks > 1
+    many = fops.flash_attention(q, k, v)
+    one = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    _, fn = fops._f32_launcher()
+    assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), one.data_ptr(), None,
+              1, 512, 512, 2, 4, 64, 1, 512, 1, stream) == 0
+    want = fops.flash_attention_plain(q, k, v)
+    for got in (many, one):
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    _, bf16_fn = fops._launcher()
+    assert bf16_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), one.data_ptr(),
+                   1, 512, 512, 2, 4, 64, 1, 0, stream) == -1
+    before = fops.flash_attention.launches_f32
+    fops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    assert fops.flash_attention.launches_f32 == before
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("w", [1, 4, 68])
 def test_paged_kernel_matches_plain(dev, w, dtype):
