@@ -41,6 +41,7 @@ from repro_torch.serving.control_plane import (ControlPlane,
                                                ReplicatedControlPlane)
 from repro_torch.serving.engine import DecodeEngine, PrefillEngine
 from repro_torch.serving.fabric import Fabric, FabricConfig, kv_hop_seconds
+from repro_torch.serving.tracing import Tracer
 
 
 @dataclass
@@ -64,6 +65,7 @@ class ServeRequest:
     # queueing, and the uncongested (OPT) transfer time
     transfer_wait: float = 0.0
     transfer_floor: float = 0.0
+    submit_ns: int = 0                # submit on time.perf_counter_ns()
 
     @property
     def ttft(self) -> float:
@@ -112,10 +114,13 @@ class DisaggregatedCluster:
         # when ``control`` is built here — an injected plane brings its own.
         self.fabric = (Fabric(fabric, num_decode=num_decode, num_prefill=1)
                        if fabric is not None else None)
+        # one span timeline for the cluster and its engines, off until a
+        # caller sets ``tracer.enabled`` (serving/tracing.py)
+        self.tracer = Tracer()
         self.prefill = PrefillEngine(model, params, max_len,
                                      cache_entries=prefill_cache_entries,
                                      max_batch=max_prefill_batch,
-                                     device=self.device)
+                                     device=self.device, tracer=self.tracer)
         # num_pages sizes each paged decoder's KV page pool (None = the
         # dense worst case, where the page gate never binds); dense impls
         # ignore it.
@@ -123,7 +128,7 @@ class DisaggregatedCluster:
                                       max_len, worker_id=i,
                                       decode_impl=decode_impl,
                                       num_pages=num_pages,
-                                      device=self.device)
+                                      device=self.device, tracer=self.tracer)
                          for i in range(num_decode)]
         # Replica-view sync cadence on the engine backend: the scheduler
         # tick IS the event clock, so views refresh every
@@ -158,6 +163,13 @@ class DisaggregatedCluster:
         self.router = self.control.router
         self.poa = self.control.poa
         self.metrics = self.control.metrics
+        # routing attempts (backpressure retries included) against
+        # placements: their ratio is the retries' cost per placement
+        self.route_attempts = self.metrics.counter(
+            "route_attempts", "routing calls, retries under backpressure "
+            "included")
+        self.placements = self.metrics.counter(
+            "placements", "requests placed on a decode slot")
         self.kv_transfer_per_block = kv_transfer_per_block
         self.pending: List[ServeRequest] = []
         self.running: Dict[str, Tuple[ServeRequest, int, int]] = {}
@@ -188,11 +200,13 @@ class DisaggregatedCluster:
 
     def submit(self, req: ServeRequest):
         req.submit_t = self._now()
+        req.submit_ns = time.perf_counter_ns()
         if not req.hashes:
             req.hashes = tuple(block_hashes(req.tokens))
         self.pending.append(req)
 
     def _try_schedule(self):
+        tr = self.tracer
         still: List[ServeRequest] = []
         placed: List[Tuple[ServeRequest, int, int]] = []
         for req in self.pending:
@@ -204,9 +218,11 @@ class DisaggregatedCluster:
             # the decision_log must hold one entry per *placement*, not
             # one per abandoned attempt.
             now = self._now()
-            worker, overlap, overlaps, _ids = self.control.route(
-                req.tokens, hashes=req.hashes, now=now,
-                rid=req.request_id, record=False)
+            self.route_attempts.inc()
+            with tr.span("router.route", rid=req.request_id):
+                worker, overlap, overlaps, _ids = self.control.route(
+                    req.tokens, hashes=req.hashes, now=now,
+                    rid=req.request_id, record=False)
             dec = self.decoders[worker]
             slot = dec.free_slot()
             if slot is None or not dec.can_admit(len(req.tokens),
@@ -226,6 +242,10 @@ class DisaggregatedCluster:
             self.control.router.on_schedule(worker, req.tokens,
                                             now=self._now(),
                                             hashes=req.hashes)
+            self.placements.inc()
+            if tr.enabled:
+                tr.record("cluster.queue", req.submit_ns,
+                          time.perf_counter_ns(), rid=req.request_id)
             req.worker = worker
             req.overlap = overlap
             req.overlaps = tuple(overlaps)
@@ -234,9 +254,12 @@ class DisaggregatedCluster:
         if not placed:
             return
         if self.batch_prefill:
+            since = len(tr.spans)
             outs = self.prefill.prefill_many(
                 [(req.tokens, req.extras, req.hashes)
                  for req, _, _ in placed])
+            if tr.enabled:
+                tr.name_rows(since, [req.request_id for req, _, _ in placed])
         else:
             outs = [self.prefill.prefill(req.tokens, req.extras,
                                          hashes=req.hashes) + (0,)
@@ -274,6 +297,11 @@ class DisaggregatedCluster:
     def step(self) -> int:
         """One scheduler tick: admit pending, advance every decode engine.
         Returns number of completed requests this tick."""
+        with self.tracer.span("cluster.tick"):
+            return self._tick()
+
+    def _tick(self) -> int:
+        tr = self.tracer
         if self.fabric is not None:
             # lazy settlement: the engine has no event queue, so landed
             # transmissions release their link reservations at tick start
@@ -282,7 +310,8 @@ class DisaggregatedCluster:
             if self._ticks % self.staleness_ticks == 0:
                 self.control.sync_views(self._now())
             self._ticks += 1
-        self._try_schedule()
+        with tr.span("cluster.schedule"):
+            self._try_schedule()
         self.occupancy.append(tuple(d.active_count for d in self.decoders))
         if any(d.paged for d in self.decoders):
             self.pool_utilization.append(
@@ -317,8 +346,9 @@ class DisaggregatedCluster:
                         transfer_floor=req.transfer_floor))
                     completed += 1
         # controller telemetry poll (every tick at test scale)
-        ttft_p99 = self.metrics.histogram("ttft", window_s=300.0).p99(self._now())
-        self.control.observe(ttft_p99, self._now())
+        with tr.span("cluster.telemetry"):
+            ttft_p99 = self.metrics.histogram("ttft", window_s=300.0).p99(self._now())
+            self.control.observe(ttft_p99, self._now())
         return completed
 
     def run_until_done(self, max_ticks: int = 10_000) -> List[ServeRequest]:

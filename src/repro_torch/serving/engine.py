@@ -35,6 +35,7 @@ from repro_torch import resolve_device
 from repro_torch.core.radix import BLOCK_SIZE, block_hashes
 from repro_torch.models.model import Model
 from repro_torch.serving.paging import PageAllocator
+from repro_torch.serving.tracing import Tracer
 
 
 def _synchronize(device: torch.device) -> None:
@@ -62,8 +63,13 @@ class PrefillStats:
     batches: int = 0             # prompt passes issued (any width)
     batched_requests: int = 0    # requests served by a width>1 pass
     padded_tokens: int = 0       # pad tokens run through compute (overhead)
+    lookups: int = 0             # prefix-cache lookups
+    hits: int = 0                # lookups that found a donor
+    evictions: int = 0           # entries the prefix cache dropped
 
     def as_dict(self) -> dict:
+        """The reference's fields (``lookups``, ``hits`` and
+        ``evictions`` are the port's own)."""
         return dict(requests=self.requests, total_blocks=self.total_blocks,
                     reused_blocks=self.reused_blocks,
                     total_tokens=self.total_tokens,
@@ -83,9 +89,11 @@ def _row(caches, r: int):
 class PrefillEngine:
     def __init__(self, model: Model, params, max_len: int,
                  cache_entries: int = 16, block_size: int = BLOCK_SIZE,
-                 max_batch: int = 8, device=None):
+                 max_batch: int = 8, device=None,
+                 tracer: Optional[Tracer] = None):
         self.device = resolve_device(device)
         _check_params(params, self.device)
+        self.tracer = tracer if tracer is not None else Tracer()
         self.model = model
         self.params = params
         self.max_len = max_len
@@ -118,17 +126,20 @@ class PrefillEngine:
     def _best_match(self, hashes: Sequence[int]):
         """``(depth, entry)`` of the deepest common-prefix chain (most
         recently used wins ties); the winner's LRU position is refreshed."""
-        best, donor, key = 0, None, None
-        for chain in reversed(self._cache):   # most recent first
-            m = 0
-            for a, b in zip(chain, hashes):
-                if a != b:
-                    break
-                m += 1
-            if m > best:
-                best, donor, key = m, self._cache[chain], chain
-        if key is not None:
-            self._cache.move_to_end(key)
+        with self.tracer.span("prefill.match"):
+            best, donor, key = 0, None, None
+            for chain in reversed(self._cache):   # most recent first
+                m = 0
+                for a, b in zip(chain, hashes):
+                    if a != b:
+                        break
+                    m += 1
+                if m > best:
+                    best, donor, key = m, self._cache[chain], chain
+            if key is not None:
+                self._cache.move_to_end(key)
+        self.stats.lookups += 1
+        self.stats.hits += donor is not None
         return best, donor
 
     def _store(self, hashes: Sequence[int], caches) -> None:
@@ -142,6 +153,7 @@ class PrefillEngine:
         self._cache.move_to_end(key)
         while len(self._cache) > self.cache_entries:
             self._cache.popitem(last=False)
+            self.stats.evictions += 1
 
     def clear_cache(self) -> None:
         self._cache.clear()
@@ -259,70 +271,76 @@ class PrefillEngine:
         by (resume start, prompt length) into one stacked-donor resume pass;
         cold prompts bucket by padded length into one right-padded ragged
         pass; identical prompts collapse onto one batch row."""
-        n = len(requests)
-        results: List[Optional[Tuple[np.ndarray, dict, int]]] = [None] * n
-        st = self.stats
-        can_resume = self.model.supports_prefill_resume and \
-            self.cache_entries > 0
-        cold: dict = {}     # padded_len -> [(idx, tokens, hashes)]
-        resume: dict = {}   # (start, plen) -> [(idx, tokens, hashes, donor)]
-        alias: List[Tuple[int, int]] = []   # (dup idx, primary idx)
-        seen: dict = {}     # tokens tuple -> primary idx
-        for i, (tokens, extras, hashes) in enumerate(requests):
-            if extras:
-                # multimodal inputs carry per-request arrays; keep them on
-                # the exact single-request path
-                logits, caches = self.prefill(tokens, extras, hashes=hashes)
-                results[i] = (logits, caches, 0)
-                continue
-            key = tuple(tokens)
-            if key in seen:
-                alias.append((i, seen[key]))
-                continue
-            seen[key] = i
-            if hashes is None and can_resume:
-                hashes = block_hashes(tokens, self.block_size)
-            hashes = tuple(hashes or ())
-            start, donor = 0, None
-            if can_resume and hashes:
-                m, donor = self._best_match(hashes)
-                start = min(m * self.block_size, len(tokens) - 1)
-                if start <= 0:
-                    start, donor = 0, None
-            if donor is not None:
-                resume.setdefault((start, len(tokens)), []).append(
-                    (i, tokens, hashes, donor))
-            else:
-                cold.setdefault(self._padded_len(len(tokens)), []).append(
-                    (i, tokens, hashes))
-        for plen, group in cold.items():
-            for c0 in range(0, len(group), self.max_batch):
-                self._run_cold_chunk(plen, group[c0:c0 + self.max_batch],
-                                     results)
-        for (start, _), group in resume.items():
-            for c0 in range(0, len(group), self.max_batch):
-                self._run_resume_chunk(start, group[c0:c0 + self.max_batch],
-                                       results)
-        for i, j in alias:
-            results[i] = results[j]
-            st.requests += 1
-            st.total_blocks += len(tuple(requests[i][2] or ()))
-            st.total_tokens += len(requests[i][0])
+        with self.tracer.span("prefill.batch"):
+            n = len(requests)
+            results: List[Optional[Tuple[np.ndarray, dict, int]]] = [None] * n
+            st = self.stats
+            can_resume = self.model.supports_prefill_resume and \
+                self.cache_entries > 0
+            cold: dict = {}     # padded_len -> [(idx, tokens, hashes)]
+            resume: dict = {}   # (start, plen) -> [(idx, tokens, hashes, donor)]
+            alias: List[Tuple[int, int]] = []   # (dup idx, primary idx)
+            seen: dict = {}     # tokens tuple -> primary idx
+            for i, (tokens, extras, hashes) in enumerate(requests):
+                if extras:
+                    # multimodal inputs carry per-request arrays; keep them on
+                    # the exact single-request path
+                    logits, caches = self.prefill(tokens, extras, hashes=hashes)
+                    results[i] = (logits, caches, 0)
+                    continue
+                key = tuple(tokens)
+                if key in seen:
+                    alias.append((i, seen[key]))
+                    continue
+                seen[key] = i
+                if hashes is None and can_resume:
+                    hashes = block_hashes(tokens, self.block_size)
+                hashes = tuple(hashes or ())
+                start, donor = 0, None
+                if can_resume and hashes:
+                    m, donor = self._best_match(hashes)
+                    start = min(m * self.block_size, len(tokens) - 1)
+                    if start <= 0:
+                        start, donor = 0, None
+                if donor is not None:
+                    resume.setdefault((start, len(tokens)), []).append(
+                        (i, tokens, hashes, donor))
+                else:
+                    cold.setdefault(self._padded_len(len(tokens)), []).append(
+                        (i, tokens, hashes))
+            for plen, group in cold.items():
+                for c0 in range(0, len(group), self.max_batch):
+                    self._run_cold_chunk(plen, group[c0:c0 + self.max_batch],
+                                         results)
+            for (start, _), group in resume.items():
+                for c0 in range(0, len(group), self.max_batch):
+                    self._run_resume_chunk(start, group[c0:c0 + self.max_batch],
+                                           results)
+            for i, j in alias:
+                results[i] = results[j]
+                st.requests += 1
+                st.total_blocks += len(tuple(requests[i][2] or ()))
+                st.total_tokens += len(requests[i][0])
         return results
 
     def _run_cold_chunk(self, plen: int, group, results) -> None:
-        w = self._width(len(group))
-        toks = np.zeros((w, plen), np.int32)
-        lens = np.ones((w,), np.int32)
-        for r, (_, tokens, _) in enumerate(group):
-            toks[r, :len(tokens)] = tokens
-            lens[r] = len(tokens)
-        t0 = time.perf_counter()
-        logits, caches = self.model.prefill_batched(
-            self.params, self._tokens(toks), self._tokens(lens),
-            max_len=self.max_len)
-        logits = logits.cpu().numpy()
-        wall = time.perf_counter() - t0
+        tr = self.tracer
+        rows = tuple(i for i, *_ in group) if tr.enabled else None
+        with tr.span("prefill.pass", rid=rows, tag="cold"):
+            with tr.span("prefill.dispatch"):
+                w = self._width(len(group))
+                toks = np.zeros((w, plen), np.int32)
+                lens = np.ones((w,), np.int32)
+                for r, (_, tokens, _) in enumerate(group):
+                    toks[r, :len(tokens)] = tokens
+                    lens[r] = len(tokens)
+                t0 = time.perf_counter()
+                logits, caches = self.model.prefill_batched(
+                    self.params, self._tokens(toks), self._tokens(lens),
+                    max_len=self.max_len)
+            with tr.span("prefill.wait"):
+                logits = logits.cpu().numpy()
+            wall = time.perf_counter() - t0
         st = self.stats
         st.batches += 1
         st.wall_s += wall
@@ -330,45 +348,52 @@ class PrefillEngine:
             st.batched_requests += len(group)
         st.padded_tokens += int(np.sum(plen - lens[:len(group)])) \
             + (w - len(group)) * plen
-        for r, (i, tokens, hashes) in enumerate(group):
-            st.requests += 1
-            st.total_blocks += len(hashes)
-            st.total_tokens += len(tokens)
-            st.computed_tokens += len(tokens)
-            st.flops += self._flops_per_token * len(tokens)
-            results[i] = (logits[r], caches, r)
-            if hashes and self.cache_entries > 0:
-                self._store(hashes, _row(caches, r))
+        with tr.span("prefill.store"):
+            for r, (i, tokens, hashes) in enumerate(group):
+                st.requests += 1
+                st.total_blocks += len(hashes)
+                st.total_tokens += len(tokens)
+                st.computed_tokens += len(tokens)
+                st.flops += self._flops_per_token * len(tokens)
+                results[i] = (logits[r], caches, r)
+                if hashes and self.cache_entries > 0:
+                    self._store(hashes, _row(caches, r))
 
     def _run_resume_chunk(self, start: int, group, results) -> None:
-        w = self._width(len(group))
-        suffixes = np.stack(
-            [np.asarray(tokens[start:], np.int32) for _, tokens, _, _ in group]
-            + [np.asarray(group[0][1][start:], np.int32)] * (w - len(group)))
-        donors = [d for *_, d in group] + [group[0][3]] * (w - len(group))
-        stacked = donors[0] if w == 1 else {
-            n: torch.cat([d[n] for d in donors], dim=1) for n in donors[0]}
-        t0 = time.perf_counter()
-        logits, caches = self.model.prefill_resume(
-            self.params, stacked, self._tokens(suffixes), start)
-        logits = logits.cpu().numpy()
-        wall = time.perf_counter() - t0
+        tr = self.tracer
+        rows = tuple(i for i, *_ in group) if tr.enabled else None
+        with tr.span("prefill.pass", rid=rows, tag="resumed"):
+            with tr.span("prefill.dispatch"):
+                w = self._width(len(group))
+                suffixes = np.stack(
+                    [np.asarray(tokens[start:], np.int32) for _, tokens, _, _ in group]
+                    + [np.asarray(group[0][1][start:], np.int32)] * (w - len(group)))
+                donors = [d for *_, d in group] + [group[0][3]] * (w - len(group))
+                stacked = donors[0] if w == 1 else {
+                    n: torch.cat([d[n] for d in donors], dim=1) for n in donors[0]}
+                t0 = time.perf_counter()
+                logits, caches = self.model.prefill_resume(
+                    self.params, stacked, self._tokens(suffixes), start)
+            with tr.span("prefill.wait"):
+                logits = logits.cpu().numpy()
+            wall = time.perf_counter() - t0
         st = self.stats
         st.batches += 1
         st.wall_s += wall
         if len(group) > 1:
             st.batched_requests += len(group)
         st.padded_tokens += (w - len(group)) * suffixes.shape[1]
-        for r, (i, tokens, hashes, _) in enumerate(group):
-            st.requests += 1
-            st.total_blocks += len(hashes)
-            st.reused_blocks += start // self.block_size
-            st.total_tokens += len(tokens)
-            st.computed_tokens += len(tokens) - start
-            st.flops += self._flops_per_token * (len(tokens) - start)
-            results[i] = (logits[r], caches, r)
-            if hashes:
-                self._store(hashes, _row(caches, r))
+        with tr.span("prefill.store"):
+            for r, (i, tokens, hashes, _) in enumerate(group):
+                st.requests += 1
+                st.total_blocks += len(hashes)
+                st.reused_blocks += start // self.block_size
+                st.total_tokens += len(tokens)
+                st.computed_tokens += len(tokens) - start
+                st.flops += self._flops_per_token * (len(tokens) - start)
+                results[i] = (logits[r], caches, r)
+                if hashes:
+                    self._store(hashes, _row(caches, r))
 
 
 @dataclass
@@ -399,11 +424,13 @@ class DecodeEngine:
                  worker_id: int = 0, resident_blocks: int = 4096,
                  decode_impl: str = "pallas",
                  num_pages: Optional[int] = None,
-                 page_block: int = BLOCK_SIZE, device=None):
+                 page_block: int = BLOCK_SIZE, device=None,
+                 tracer: Optional[Tracer] = None):
         if decode_impl not in ("pallas", "sdpa") + PAGED_IMPLS:
             raise ValueError(f"unknown decode_impl {decode_impl!r}")
         self.device = resolve_device(device)
         _check_params(params, self.device)
+        self.tracer = tracer if tracer is not None else Tracer()
         self.model = model
         self.params = params
         self.num_slots = num_slots
@@ -437,6 +464,7 @@ class DecodeEngine:
         self.resident_cap = resident_blocks
         self._resident: "OrderedDict[int, None]" = OrderedDict()
         self.transferred_blocks = 0      # cumulative non-resident blocks
+        self.admitted_blocks = 0         # cumulative blocks admitted
 
     # -------------------------------------------------------------- admit ---
 
@@ -549,31 +577,33 @@ class DecodeEngine:
         the hop moved.  Paged engines map the prompt's pages (plus one
         position for the first token's write) and scatter the KV into them;
         an ungated paged admit raises."""
-        if self.paged:
-            n_map = self.pages_for_prompt(prompt_len)
-            pages = self.allocator.admit(
-                slot, n_map, self.pages_for_request(prompt_len, max_new))
-            if pages is None:
-                raise RuntimeError(
-                    f"page pool exhausted admitting {request_id!r} to slot "
-                    f"{slot}: gate admission on can_admit()")
-            self._widen_table(self._table_width(len(pages)))
-            self.page_table[slot, :] = 0
-            self.page_table[slot, :len(pages)] = pages
-            adopt_prefill_pages(self.caches, prefill_caches, src_row,
-                                torch.as_tensor(pages, device=self.device),
-                                block=self.page_block)
-        else:
-            _insert_cache(self.caches, prefill_caches, slot, src_row=src_row)
-        s = self.slots[slot]
-        s.active = True
-        s.request_id = request_id
-        s.length = prompt_len
-        s.generated = [int(first_token)]
-        s.max_new = max_new
-        self.tokens[slot, 0] = first_token
-        moved = self._touch_blocks(hashes)
-        self.transferred_blocks += moved
+        with self.tracer.span("decode.admit", rid=request_id):
+            if self.paged:
+                n_map = self.pages_for_prompt(prompt_len)
+                pages = self.allocator.admit(
+                    slot, n_map, self.pages_for_request(prompt_len, max_new))
+                if pages is None:
+                    raise RuntimeError(
+                        f"page pool exhausted admitting {request_id!r} to slot "
+                        f"{slot}: gate admission on can_admit()")
+                self._widen_table(self._table_width(len(pages)))
+                self.page_table[slot, :] = 0
+                self.page_table[slot, :len(pages)] = pages
+                adopt_prefill_pages(self.caches, prefill_caches, src_row,
+                                    torch.as_tensor(pages, device=self.device),
+                                    block=self.page_block)
+            else:
+                _insert_cache(self.caches, prefill_caches, slot, src_row=src_row)
+            s = self.slots[slot]
+            s.active = True
+            s.request_id = request_id
+            s.length = prompt_len
+            s.generated = [int(first_token)]
+            s.max_new = max_new
+            self.tokens[slot, 0] = first_token
+            moved = self._touch_blocks(hashes)
+            self.transferred_blocks += moved
+            self.admitted_blocks += len(hashes)
         return moved
 
     def release(self, slot: int):
@@ -622,8 +652,33 @@ class DecodeEngine:
         been released inside this step; callers must NOT release it."""
         if not any(s.active and s.generated for s in self.slots):
             return []
+        tr = self.tracer
+        with tr.span("decode.step"):
+            with tr.span("decode.dispatch"):
+                nxt = self._dispatch()
+            with tr.span("decode.wait"):
+                nxt = nxt.cpu().numpy()
+            with tr.span("decode.bookkeep"):
+                out = []
+                for i, s in enumerate(self.slots):
+                    if not s.active or not s.generated:
+                        continue
+                    tok = int(nxt[i])
+                    s.generated.append(tok)
+                    s.length += 1
+                    self.tokens[i, 0] = tok
+                    done = (len(s.generated) >= s.max_new + 1
+                            or s.length >= self.max_len - 1)
+                    out.append((s.request_id, tok, done))
+                    if done:
+                        self.release(i)   # slot is re-admittable this same tick
+        return out
+
+    def _dispatch(self) -> torch.Tensor:
+        """Queue one decode pass on the device; returns its argmax on the
+        device (the caller's copy to the host waits for it)."""
         # reserved-but-unadmitted slots decode as length-0 rows and their
-        # output is skipped below
+        # output is skipped by the caller
         lengths = torch.as_tensor(
             np.asarray([s.length if s.active else 0 for s in self.slots],
                        np.int32), device=self.device)
@@ -646,21 +701,7 @@ class DecodeEngine:
             self.params, self.caches, tokens, lengths,
             decode_impl=self.decode_impl, page_table=table)
         # torch.argmax returns the first maximal index, as np.argmax does
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
-        out = []
-        for i, s in enumerate(self.slots):
-            if not s.active or not s.generated:
-                continue
-            tok = int(nxt[i])
-            s.generated.append(tok)
-            s.length += 1
-            self.tokens[i, 0] = tok
-            done = (len(s.generated) >= s.max_new + 1
-                    or s.length >= self.max_len - 1)
-            out.append((s.request_id, tok, done))
-            if done:
-                self.release(i)   # slot is re-admittable this same tick
-        return out
+        return torch.argmax(logits, dim=-1)
 
 
 def kv_token_bytes(model: Model) -> int:
