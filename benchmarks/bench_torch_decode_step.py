@@ -20,6 +20,11 @@ numpy seeds), and then:
 * times one warm prompt pass of the longest prompt (with its frontend
   inputs) on the host clock and traces it the same way.
 
+An engine that replays its step as a CUDA graph (``serving.engine.
+graphs_decode``: attention-only models without MoE) records it in the
+first tick, before the ranges are added, so its traced ticks hold the
+kernels but no layer-kind ranges; models decoded eagerly hold both.
+
     PYTHONPATH=src python benchmarks/bench_torch_decode_step.py \
         [--impl pallas|sdpa|paged|paged_sdpa] [--arch qwen3-moe-30b-a3b] \
         [--layers N]

@@ -119,8 +119,10 @@ Phases, each of which fails the run (exit code 1) if it fails:
    ``pallas``, ``paged_sdpa`` and ``paged``, paged capacity with both rate
    ratios and a flood, occupancy) with every kernel count set to 0 just
    before: K1 and K2 launched once per layer and ``"pallas"`` / ``"paged"``
-   decode pass, K3 never (its fp32 launches, counted apart, are the
-   ``flash_attention_bench_fp32`` record's), no decode window short of a
+   decode pass the card ran (each eager pass and each replay of a
+   recorded decode graph; a capture runs none), K3 never (its fp32
+   launches, counted apart, are the ``flash_attention_bench_fp32``
+   record's), no decode window short of a
    live slot, and the
    24-page pool admitting PAGED_ADMITTED requests, at least
    MIN_PAGED_CAPACITY x the dense slots.  The timing gates are printed
@@ -844,8 +846,10 @@ def phase_slice(torch, model, params, cfg, counters):
         p50 = ttft[len(ttft) // 2]
         p99 = ttft[min(len(ttft) - 1, int(round(0.99 * (len(ttft) - 1))))]
         gen_tokens = sum(len(r.output) - 1 for r in done)
+        replays = sum(d.graph_replays for d in cluster.decoders)
+        captures = sum(d.graph_captures for d in cluster.decoders)
         print(f"slice {cfg.name} {impl}: 12 requests, {steps} decode "
-              f"steps, "
+              f"steps ({replays} replayed, {captures} graphs recorded), "
               f"{launches[kernel]} {kernel} launches, "
               f"resumed blocks {st.reused_blocks}/{st.total_blocks}, "
               f"TTFT p50 {p50 * 1e3:.1f} ms p99 {p99 * 1e3:.1f} ms, "
@@ -1856,14 +1860,25 @@ def phase_engine_bench(torch, model, params, cfg, gpu, counters):
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
               f"max err {r['max_abs_err']:.3g} (fp32, {r['shape']})")
 
-    # the engine rows, with every decode pass counted by its impl
+    # the engine rows, with every decode pass the card ran counted by its
+    # impl: each eager call (a capture's call runs nothing) and each replay
+    from repro_torch.serving.engine import DecodeEngine
     passes = collections.Counter()
     inner = model.decode
+    queue = DecodeEngine._queue
 
     def counted(*args, decode_impl="sdpa", **kw):
-        passes[decode_impl] += 1
+        if not torch.cuda.is_current_stream_capturing():
+            passes[decode_impl] += 1
         return inner(*args, decode_impl=decode_impl, **kw)
+
+    def replays(dec):
+        before = dec.graph_replays
+        out = queue(dec)
+        passes[dec.decode_impl] += dec.graph_replays - before
+        return out
     model.decode = counted
+    DecodeEngine._queue = replays
     for fn in counters:
         fn.launches = 0
     flash_attention.launches_f32 = 0
@@ -1871,6 +1886,7 @@ def phase_engine_bench(torch, model, params, cfg, gpu, counters):
         out = bench.rows(model, params, cfg, "cuda")
     finally:
         del model.decode
+        DecodeEngine._queue = queue
     launches = {fn.__name__: fn.launches for fn in counters}
     f32_launches = flash_attention.launches_f32
     layers = cfg.num_layers

@@ -135,13 +135,18 @@ def split_plan(batch, seq_len, num_kv, group, head_dim):
 
 # device -> int32 combine counters of the split-KV kernels (dense and
 # paged); every launch leaves them at zero.  Launches on one device share
-# them, so they must be ordered (one stream).
+# them, so they must be ordered (one stream).  A buffer outgrown by a wider
+# launch stays allocated in _OUTGROWN: a CUDA graph that recorded a launch
+# holds its address.
 _COUNTERS = {}
+_OUTGROWN = []
 
 
 def _counters(device, n):
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _OUTGROWN.append(buf)
         buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
         _COUNTERS[device] = buf
     return buf

@@ -40,6 +40,7 @@ shards (:func:`on_local_shards`): batch over the data axes, heads over
 from __future__ import annotations
 
 import contextvars
+import functools
 import math
 
 import numpy as np
@@ -87,12 +88,21 @@ def rmsnorm(params, x, eps=1e-5):
 
 # ----------------------------------------------------------------- rope ----
 
-def rope_table(positions, head_dim, theta):
-    """positions: int (..., S) -> (cos, sin) each (..., S, head_dim//2) fp32.
-    The frequencies are computed in numpy float32, as the reference does."""
+@functools.lru_cache(maxsize=None)
+def rope_freqs(head_dim, theta, device):
+    """The (head_dim//2,) fp32 RoPE frequencies on ``device``, computed in
+    numpy float32 as the reference does, once per (head_dim, theta,
+    device): copying them to a card at every call would synchronise its
+    stream once a layer, and a CUDA graph capture refuses the copy."""
     half = head_dim // 2
     freqs = 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
-    freqs = torch.from_numpy(np.asarray(freqs, np.float32)).to(positions.device)
+    return torch.from_numpy(np.asarray(freqs, np.float32)).to(device)
+
+
+def rope_table(positions, head_dim, theta):
+    """positions: int (..., S) -> (cos, sin) each (..., S, head_dim//2) fp32,
+    from :func:`rope_freqs`."""
+    freqs = rope_freqs(head_dim, theta, positions.device)
     angles = positions.float()[..., None] * freqs
     return torch.cos(angles), torch.sin(angles)
 

@@ -18,24 +18,33 @@ the prefill-to-decode hop is charged per non-resident block.
 Differences from the reference, all of mechanism: no ``jit`` (PyTorch runs
 eagerly, so ``warmup`` runs each pass once to pay its one-time costs where
 the reference compiles it), and caches are updated in place where the
-reference donates them.  Every engine runs on ``cuda``
-unless the caller passes another ``device``.
+reference donates them.  Where the reference jits the decode step, a
+decode engine on a card replays it as a CUDA graph, one per page-table
+width (:func:`graphs_decode` says which engines do; :class:`StepGraph`).
+Every engine runs on ``cuda`` unless the caller passes another ``device``.
 """
 from __future__ import annotations
 
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
 from repro_torch.core.radix import BLOCK_SIZE, block_hashes
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models.model import Model
 from repro_torch.serving.paging import PageAllocator
 from repro_torch.serving.tracing import Tracer
+from repro_torch.training.optimizer import leaves
+
+# the kernel wrappers whose ``launches`` a decode pass advances
+DECODE_KERNELS = (decode_attention, paged_attention)
 
 
 def _synchronize(device: torch.device) -> None:
@@ -408,6 +417,87 @@ class Slot:
 PAGED_IMPLS = ("paged", "paged_sdpa")
 
 
+def graphs_decode(model: Model, params, device: torch.device) -> bool:
+    """Whether a decode engine replays its step as a CUDA graph: on a card,
+    with plain (unsharded) parameters, for an attention-only stack
+    (:attr:`Model.supports_paged_decode`) without MoE layers.  Every other
+    engine queues each step eagerly."""
+    return (device.type == "cuda" and model.supports_paged_decode
+            and model.cfg.moe is None
+            and not any(isinstance(p, DTensor) for p in leaves(params)))
+
+
+def record_graph(fn, pool, stream):
+    """``fn()`` captured on ``stream`` as a CUDA graph whose memory comes
+    from ``pool``.  Returns (the graph, ``fn``'s output: a static tensor
+    that every replay rewrites)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool, stream=stream):
+        out = fn()
+    return graph, out
+
+
+def recorded_launches(counters, fn):
+    """``fn()``, a capture, and what it added to each counter's
+    ``launches``.  The counters are put back as they were: a capture runs
+    the kernel wrappers' host code once and launches nothing.  Returns
+    (``fn``'s result, {counter: launches a replay makes})."""
+    before = [c.launches for c in counters]
+    try:
+        out = fn()
+    finally:
+        made = {c: c.launches - n for c, n in zip(counters, before)}
+        for c, n in zip(counters, before):
+            c.launches = n
+    return out, made
+
+
+class StepGraph:
+    """A decode engine's recorded pass at one page-table width (0: a dense
+    engine's).
+
+    ``inputs`` packs the step's int32 tokens (B), lengths (B) and page
+    table (B, W) on the device, so one non-blocking copy from the pinned
+    ``host`` buffer stages them; ``tokens``, ``lengths`` and ``table`` are
+    its views, which the graph reads.  The caches and weights are read and
+    written in place, by address.  ``out`` is the graph's argmax (B,);
+    ``launches`` the kernel launches it recorded, which every replay adds
+    to the wrappers' counters."""
+
+    def __init__(self, num_slots: int, width: int, device: torch.device):
+        b = num_slots
+        n = b * (2 + width)
+        self.host = torch.zeros(n, dtype=torch.int32,
+                                pin_memory=device.type == "cuda")
+        self.inputs = torch.zeros(n, dtype=torch.int32, device=device)
+        self.tokens = self.inputs[:b].view(b, 1)
+        self.lengths = self.inputs[b:2 * b]
+        self.table = self.inputs[2 * b:].view(b, width) if width else None
+        self.graph = None
+        self.out: Optional[torch.Tensor] = None
+        self.launches: Dict = {}
+
+    def stage(self, tokens: np.ndarray, lengths: np.ndarray,
+              table: Optional[np.ndarray]) -> None:
+        """Copy one step's inputs to the device (``table`` None on a dense
+        engine).  The host buffer is written again only by the next step,
+        after this one's argmax has reached the host, so the copy has
+        ended."""
+        h = self.host.numpy()
+        b = len(lengths)
+        h[:b] = tokens[:, 0]
+        h[b:2 * b] = lengths
+        if table is not None:
+            h[2 * b:] = table.ravel()
+        self.inputs.copy_(self.host, non_blocking=True)
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        for kernel, n in self.launches.items():
+            kernel.launches += n
+        return self.out
+
+
 class DecodeEngine:
     """Fixed-slot continuous batcher around the ragged decode step.
 
@@ -418,7 +508,16 @@ class DecodeEngine:
     of ``num_pages`` KV blocks and a per-slot page table.  The paged layout
     gates admission on free pages, grows a slot's table when generation
     crosses a block boundary, and returns the pages on release.
-    ``num_pages=None`` sizes the pool to the dense worst case."""
+    ``num_pages=None`` sizes the pool to the dense worst case.
+
+    Where :func:`graphs_decode` holds, each step replays the pass recorded
+    at the live table's width (:class:`StepGraph`; a dense engine has one):
+    :meth:`warmup` records the widths it runs, and a step at a width not
+    recorded yet runs eagerly and records it.  ``graph_replays``,
+    ``graph_captures`` and ``eager_steps`` count what the steps did (a
+    step counts as a replay or as eager; each recording counts as a
+    capture).  The graphs share one memory pool per engine and replay on
+    the current stream, as eager launches run."""
 
     def __init__(self, model: Model, params, num_slots: int, max_len: int,
                  worker_id: int = 0, resident_blocks: int = 4096,
@@ -465,6 +564,13 @@ class DecodeEngine:
         self._resident: "OrderedDict[int, None]" = OrderedDict()
         self.transferred_blocks = 0      # cumulative non-resident blocks
         self.admitted_blocks = 0         # cumulative blocks admitted
+        self.graphed = graphs_decode(model, params, self.device)
+        self._graphs: Dict[int, StepGraph] = {}    # table width -> graph
+        self._graph_pool = None          # the graphs' memory pool
+        self._capture_stream = None
+        self.graph_replays = 0           # steps that replayed a graph
+        self.graph_captures = 0          # graphs recorded
+        self.eager_steps = 0             # steps that ran eagerly
 
     # -------------------------------------------------------------- admit ---
 
@@ -625,22 +731,28 @@ class DecodeEngine:
         On a paged engine, once per width in ``table_widths`` (see
         :meth:`width_ladder`) and once at the live table's width, which
         stays as it is.  Where the reference compiles the step per width,
-        the port pays each width's first launch here."""
-        lengths = torch.zeros((self.num_slots,), dtype=torch.int32,
-                              device=self.device)
-        tokens = torch.as_tensor(self.tokens, device=self.device)
-        if not self.paged:
-            self.model.decode(self.params, self.caches, tokens, lengths,
-                              decode_impl=self.decode_impl)
-        else:
+        the port pays each width's first launch here; a graphed engine
+        records each width it has not recorded yet, after that pass."""
+        widths = [0]
+        if self.paged:
             widths = sorted({int(w) for w in (table_widths or ())}
                             | {self.page_table.shape[1]})
+        zeros = np.zeros((self.num_slots,), np.int32)
+        if self.graphed:
             for w in widths:
-                table = torch.zeros((self.num_slots, w), dtype=torch.int32,
-                                    device=self.device)
-                self.model.decode(self.params, self.caches, tokens, lengths,
-                                  decode_impl=self.decode_impl,
-                                  page_table=table)
+                if w not in self._graphs:
+                    table = np.zeros((self.num_slots, w), np.int32) \
+                        if self.paged else None
+                    self._record(zeros, table)
+            _synchronize(self.device)
+            return
+        lengths = torch.as_tensor(zeros, device=self.device)
+        tokens = torch.as_tensor(self.tokens, device=self.device)
+        for w in widths:
+            table = torch.zeros((self.num_slots, w), dtype=torch.int32,
+                                device=self.device) if self.paged else None
+            self.model.decode(self.params, self.caches, tokens, lengths,
+                              decode_impl=self.decode_impl, page_table=table)
         _synchronize(self.device)
 
     # --------------------------------------------------------------- step ---
@@ -655,7 +767,7 @@ class DecodeEngine:
         tr = self.tracer
         with tr.span("decode.step"):
             with tr.span("decode.dispatch"):
-                nxt = self._dispatch()
+                nxt = self._queue()
             with tr.span("decode.wait"):
                 nxt = nxt.cpu().numpy()
             with tr.span("decode.bookkeep"):
@@ -674,28 +786,85 @@ class DecodeEngine:
                         self.release(i)   # slot is re-admittable this same tick
         return out
 
-    def _dispatch(self) -> torch.Tensor:
-        """Queue one decode pass on the device; returns its argmax on the
-        device (the caller's copy to the host waits for it)."""
+    def _queue(self) -> torch.Tensor:
+        """Queue this tick's decode pass on the device; returns its argmax
+        on the device (the caller's copy to the host waits for it).  A
+        graphed engine stages the inputs and replays the graph of the live
+        table's width, or runs the pass eagerly and records that width."""
+        if not self.graphed:
+            self.eager_steps += 1
+            return self._dispatch()
+        if self.paged:
+            self._grow_pages()
+        table = self.page_table if self.paged else None
+        graph = self._graphs.get(0 if table is None else table.shape[1])
+        if graph is None:
+            self.eager_steps += 1
+            return self._record(self._lengths(), table)
+        graph.stage(self.tokens, self._lengths(), table)
+        self.graph_replays += 1
+        return graph.replay()
+
+    def _record(self, lengths: np.ndarray,
+                table: Optional[np.ndarray]) -> torch.Tensor:
+        """Record the pass at ``table``'s width (None: the dense pass) on
+        these inputs.  It runs once eagerly on the capture stream first,
+        which pays its lazy allocations (the kernels' combine counters
+        among them) outside the graphs' pool; returns that pass's argmax."""
+        width = 0 if table is None else table.shape[1]
+        graph = StepGraph(self.num_slots, width, self.device)
+        graph.stage(self.tokens, lengths, table)
+        stream = None
+        if self.device.type == "cuda":
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                self._capture_stream = torch.cuda.Stream(self.device)
+            stream = self._capture_stream
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+
+        def decode_pass():
+            logits, _ = self.model.decode(
+                self.params, self.caches, graph.tokens, graph.lengths,
+                decode_impl=self.decode_impl, page_table=graph.table)
+            return torch.argmax(logits, dim=-1)
+        with torch.cuda.stream(stream):
+            out = decode_pass()
+            (graph.graph, graph.out), graph.launches = recorded_launches(
+                DECODE_KERNELS,
+                lambda: record_graph(decode_pass, self._graph_pool, stream))
+        if stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+        self._graphs[width] = graph
+        self.graph_captures += 1
+        return out
+
+    def _lengths(self) -> np.ndarray:
         # reserved-but-unadmitted slots decode as length-0 rows and their
         # output is skipped by the caller
-        lengths = torch.as_tensor(
-            np.asarray([s.length if s.active else 0 for s in self.slots],
-                       np.int32), device=self.device)
+        return np.asarray([s.length if s.active else 0 for s in self.slots],
+                          np.int32)
+
+    def _grow_pages(self) -> None:
+        """The paged growth pre-pass: this tick writes each admitted slot's
+        KV at position s.length; map one page from the slot's reservation
+        when that crosses into an unmapped block."""
+        for i, s in enumerate(self.slots):
+            if not s.active or not s.generated:
+                continue
+            j = s.length // self.page_block
+            if j >= len(self.allocator.owned[i]):
+                page = self.allocator.grow(i)
+                self._widen_table(self._table_width(j + 1))
+                self.page_table[i, j] = page
+
+    def _dispatch(self) -> torch.Tensor:
+        """Queue one decode pass eagerly, op by op; returns its argmax on
+        the device."""
+        lengths = torch.as_tensor(self._lengths(), device=self.device)
         tokens = torch.as_tensor(self.tokens, device=self.device)
         table = None
         if self.paged:
-            # growth pre-pass: this tick writes each admitted slot's KV at
-            # position s.length; map one page from the slot's reservation
-            # when that crosses into an unmapped block
-            for i, s in enumerate(self.slots):
-                if not s.active or not s.generated:
-                    continue
-                j = s.length // self.page_block
-                if j >= len(self.allocator.owned[i]):
-                    page = self.allocator.grow(i)
-                    self._widen_table(self._table_width(j + 1))
-                    self.page_table[i, j] = page
+            self._grow_pages()
             table = torch.as_tensor(self.page_table, device=self.device)
         logits, self.caches = self.model.decode(
             self.params, self.caches, tokens, lengths,
