@@ -18,8 +18,6 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from reference import dense_gqa
-
 
 def sample(records, n: int, seed: int) -> list:
     """Up to ``n`` finished records: the longest, one cold and one resumed
@@ -40,11 +38,12 @@ def sample(records, n: int, seed: int) -> list:
     return pick
 
 
-def logit_gaps(weights, model: dict, chosen, control: bool = False
-               ) -> Dict[str, Optional[float]]:
+def logit_gaps(reference, weights, model: dict, chosen,
+               control: bool = False) -> Dict[str, Optional[float]]:
     """The widest gap of the served tokens (``gap``) over ``chosen`` and,
     with ``control``, of the fp8 reference's first choices
-    (``control_gap``); ``tokens`` compared."""
+    (``control_gap``); ``tokens`` compared.  ``reference`` is the cell's
+    architecture's reference module."""
     seqs, wanted, served = [], [], []
     for r in chosen:
         p = len(r.tokens)
@@ -58,7 +57,7 @@ def logit_gaps(weights, model: dict, chosen, control: bool = False
 
         def take(i, lo, logits):
             firsts[i].append(logits.argmax(-1).cpu())
-        dense_gqa.logits_at(weights, model, seqs, wanted, take,
+        reference.logits_at(weights, model, seqs, wanted, take,
                             precision="fp8")
         picks = [torch.cat(f) for f in firsts]
     worst = {"gap": 0.0, "control_gap": 0.0 if control else None}
@@ -74,6 +73,6 @@ def logit_gaps(weights, model: dict, chosen, control: bool = False
             c = picks[i][at:at + logits.shape[0]].to(logits.device)
             worst["control_gap"] = max(worst["control_gap"],
                                        float((best - logits[rows, c]).max()))
-    dense_gqa.logits_at(weights, model, seqs, wanted, judge)
+    reference.logits_at(weights, model, seqs, wanted, judge)
     worst["tokens"] = sum(len(w) for w in wanted)
     return worst

@@ -76,16 +76,18 @@ def idle_share(run) -> Optional[float]:
 
 def roofline_pct(run, kernel: str, nbytes) -> Optional[float]:
     """Share of the byte bound: the least time of a launch of ``kernel``
-    (``nbytes(lengths)`` of each launch the traced decode steps made, one a
-    layer, at the card's bandwidth, averaged) over its mean device time in
-    the trace.  Nothing where the trace holds no launch of it, or fewer
-    than 95% of the launches the steps made (the profiler can drop a few
-    records under load; the mean of those it kept stands for them)."""
+    (``nbytes(lengths)`` of each launch the traced decode steps made, one
+    in each layer that attends, at the card's bandwidth, averaged) over its
+    mean device time in the trace.  Nothing where the trace holds no launch
+    of it, or fewer than 95% of the launches the steps made (the profiler
+    can drop a few records under load; the mean of those it kept stands
+    for them)."""
     tr = run.trace
     if tr is None or not run.traced_steps or not run.device.startswith("cuda"):
         return None
     sec, count = tr.kernel(kernel)
-    made = run.model["num_hidden_layers"] * len(run.traced_steps)
+    made = (run.arch.decode_attention_layers(run.model)
+            * len(run.traced_steps))
     if sec <= 0 or not 0.95 * made <= count <= made:
         return None
     per_launch = sum(nbytes([n + 1 for n in lengths])
@@ -102,7 +104,7 @@ def step_mfu_pct(run) -> Optional[float]:
         return None
     m = run.model
     flops = sum(f for t, f in run.passes if run.w0 <= t < run.w1)
-    flops += sum(work.decode_flops(m, live)
+    flops += sum(run.arch.decode_flops(m, live)
                  for t0, _, _, live in run.decode_steps
                  if run.w0 <= t0 < run.w1)
     peak = work.peaks(run.device_kind)["bf16_flops_per_s"]

@@ -59,7 +59,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     """Set up, measure, read the metrics, free the program's state and
     judge what it served.  ``control`` also reads the fp8 control's gap
     (not a benchmark run's work).  ``registry`` stands in for the
-    program's registry config (the tests' reduced models)."""
+    program's config (the tests' reduced models)."""
     marks = [("start", t_start), ("imports", time.perf_counter())]
     h = Harness(cell, seed, device, registry)
     marks.append(("weights", time.perf_counter()))
@@ -98,7 +98,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     in_window = [r for r in records
                  if r.finished is not None and r.finished >= run.w0]
     chosen = check.sample(in_window or records, cell.limits["requests"], seed)
-    gaps = check.logit_gaps(h.weights, cell.config["model"], chosen, control)
+    gaps = check.logit_gaps(h.arch.reference, h.weights,
+                            cell.config["model"], chosen, control)
     limit = cell.limits["logit_gap"]
     correct = bool(chosen) and gaps["gap"] <= limit and failed == 0
     device_info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
@@ -122,7 +123,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         out["_trace"] = {
             "device_ops": sum(c for _, c in run.trace.ops.values()),
             "traced_decode_steps": len(run.traced_steps),
-            "layers": cell.config["model"]["num_hidden_layers"],
+            "layers": h.arch.decode_attention_layers(cell.config["model"]),
             "k1_launches": run.trace.kernel("dense_split_kernel")[1],
             "k2_launches": run.trace.kernel("paged_split_kernel")[1]}
     out["_control_gap"] = gaps["control_gap"]

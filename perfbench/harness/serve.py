@@ -27,6 +27,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+import architectures
 from harness import weights as weights_lib
 from harness.load import ClosedLoop, OpenLoop, Request, build_traffic
 from harness.spec import Cell, model_config
@@ -61,6 +62,7 @@ class Run:
     model: dict
     deployment: dict
     device: str
+    arch: object = None            # the cell's architecture module
     device_kind: str = "cpu"
     records: Dict[str, Record] = field(default_factory=dict)
     spans: Dict[str, list] = field(default_factory=dict)
@@ -93,10 +95,11 @@ class Harness:
         self.cell = cell
         self.seed = int(seed)
         self.device = torch.device(device)
-        self.cfg = model_config(cell.config, registry)
+        self.arch = architectures.load(cell.config, cell.bench_dir)
+        self.cfg = model_config(cell.config, self.arch, registry)
         self.model = Model(self.cfg)
-        self.weights = weights_lib.make_weights(cell.config["model"], seed,
-                                                self.device)
+        self.weights = weights_lib.make_weights(
+            self.arch, cell.config["model"], seed, self.device)
         self.cluster = None
 
     # ------------------------------------------------------------ set-up --
@@ -142,7 +145,7 @@ class Harness:
 
     def traffic(self, seconds: float):
         return build_traffic(self.cell.traffic, self.seed, seconds,
-                             self.cell.config["model"]["vocab_size"])
+                             self.arch.vocab(self.cell.config["model"]))
 
     # ------------------------------------------------------------ window --
 
@@ -156,7 +159,7 @@ class Harness:
         finished requests to judge where outputs outlast the window."""
         c = self.cluster
         run = Run(self.cell.config["model"], self.cell.deployment,
-                  str(self.device))
+                  str(self.device), self.arch)
         traced = trace_s > 0
         if traced:
             _warm_profiler(self.device)
@@ -443,12 +446,12 @@ class _Instruments:
         the real rows of each chunk the engine runs (its padding rows left
         out): a cold row's positions from 0, a resumed row's from
         ``start``."""
-        from harness import work
         run, m = self.run, self.run.model
+        prompt_flops = run.arch.prompt_flops
 
         def cold(fn):
             def wrapped(plen, group, results):
-                flops = sum(work.prompt_flops(m, 0, len(t))
+                flops = sum(prompt_flops(m, 0, len(t))
                             for _, t, _ in group)
                 run.passes.append((time.perf_counter(), flops))
                 return fn(plen, group, results)
@@ -456,7 +459,7 @@ class _Instruments:
 
         def resume(fn):
             def wrapped(start, group, results):
-                flops = sum(work.prompt_flops(m, start, len(t))
+                flops = sum(prompt_flops(m, start, len(t))
                             for _, t, _, _ in group)
                 run.passes.append((time.perf_counter(), flops))
                 return fn(start, group, results)

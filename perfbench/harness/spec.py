@@ -4,9 +4,17 @@
 and traffic mix; ``configs/<config>.json``, ``traffic/<mix>.json`` and
 ``limits/<workload>.json`` under this benchmark's folder hold the rest.  A
 new cell is a new entry and new files: nothing here names a cell.
+
+A configuration may name its architecture (``"architecture": "<name>"``,
+the module ``architectures/<name>.py``; ``architectures.DEFAULT`` without
+the key) and the program's config (``"program": {"config":
+"<module>:<attr>"}``, the module under ``repro_torch``; without it the
+config comes from the program's registry by ``"registry"``).  Every model
+family of the port is built by its one ``Model`` class.
 """
 from __future__ import annotations
 
+import importlib
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -14,21 +22,6 @@ from typing import List, Optional
 
 BENCH_DIR = Path(__file__).resolve().parent.parent
 ROOT = BENCH_DIR.parent
-
-# The registry config's fields and the published keys that must equal them.
-WIDTH_KEYS = {
-    "num_hidden_layers": "num_layers",
-    "hidden_size": "d_model",
-    "num_attention_heads": "num_heads",
-    "num_key_value_heads": "num_kv_heads",
-    "head_dim": "head_dim",
-    "intermediate_size": "d_ff",
-    "vocab_size": "vocab_size",
-    "rope_theta": "rope_theta",
-    "rms_norm_eps": "norm_eps",
-}
-ACTIVATIONS = {"silu": "swiglu", "relu2": "squared_relu"}
-
 
 @dataclass
 class Cell:
@@ -39,6 +32,7 @@ class Cell:
     limits: dict                 # limits/<workload>.json
     end_to_end: List[dict] = field(default_factory=list)
     per_layer: List[dict] = field(default_factory=list)
+    bench_dir: Path = BENCH_DIR  # where its architecture's module lies
 
     @property
     def deployment(self) -> dict:
@@ -74,37 +68,38 @@ def load_cell(workload: str, root: Path = ROOT) -> Cell:
     traffic = _read(bench / "traffic" / f"{entry['traffic']}.json")
     limits = _read(bench / "limits" / f"{workload}.json")
     return Cell(workload, int(entry["chips"]), config, traffic, limits,
-                manifest["end_to_end"], manifest["per_layer"])
+                manifest["end_to_end"], manifest["per_layer"], bench)
 
 
-def registry_mismatches(config: dict, cfg) -> List[str]:
-    """Where the program's registry config ``cfg`` departs from the widths
-    in ``config`` (empty when they agree).  Keeps a later edit of the
-    program's config file from moving the yardstick unseen."""
-    model = config["model"]
-    out = []
-    for key, attr in WIDTH_KEYS.items():
-        want = model[key]
-        have = getattr(cfg, attr)
-        if attr == "head_dim":
-            have = cfg.resolved_head_dim
-        if float(have) != float(want):
-            out.append(f"{key}: file {want}, program {have}")
-    act = ACTIVATIONS.get(model["hidden_act"], model["hidden_act"])
-    if cfg.activation != act:
-        out.append(f"hidden_act: file {model['hidden_act']}, "
-                   f"program {cfg.activation}")
-    return out
+def _import(ref: str):
+    """The object ``"<module>:<attr>"`` names, the module under the
+    program's package ``repro_torch``."""
+    module, _, attr = ref.partition(":")
+    if module.split(".")[0] != "repro_torch" or not attr:
+        raise ValueError(f"{ref!r}: a program entry is '<module>:<attr>' "
+                         "with the module under repro_torch")
+    return getattr(importlib.import_module(module), attr)
 
 
-def model_config(config: dict, registry: Optional[object] = None):
-    """The program's ``ModelConfig`` for ``config``, from its registry, held
-    to the file's widths (raises where they differ)."""
+def program_config(config: dict):
+    """The program's config for ``config``: its ``"program"``'s
+    ``"config"`` where given, else ``registry`` through the program's
+    registry."""
+    ref = config.get("program", {}).get("config")
+    if ref is not None:
+        return _import(ref)
+    from repro_torch.configs import get_config
+    return get_config(config["registry"])
+
+
+def model_config(config: dict, arch, registry: Optional[object] = None):
+    """The program's config for ``config`` (``registry`` stands in for
+    it), held to the file's ``model`` by its architecture ``arch``
+    (raises where they differ)."""
     if registry is None:
-        from repro_torch.configs import get_config
-        registry = get_config(config["registry"])
-    bad = registry_mismatches(config, registry)
+        registry = program_config(config)
+    bad = arch.mismatches(config["model"], registry)
     if bad:
-        raise ValueError(f"{config['name']}: the program's registry config "
-                         f"differs from the benchmark's: {bad}")
+        raise ValueError(f"{config['name']}: the program's config differs "
+                         f"from the benchmark's: {bad}")
     return registry

@@ -8,4 +8,5 @@ from harness import readers, work
 def read(run):
     return readers.roofline_pct(
         run, "dense_split_kernel",
-        lambda lengths: work.decode_attention_bytes(run.model, lengths))
+        lambda lengths: work.decode_attention_bytes(
+            run.arch.attention_widths(run.model), lengths))

@@ -8,5 +8,6 @@ def read(run):
     block = 16
     return readers.roofline_pct(
         run, "paged_split_kernel",
-        lambda lengths: work.decode_attention_bytes(run.model, lengths)
+        lambda lengths: work.decode_attention_bytes(
+            run.arch.attention_widths(run.model), lengths)
         + work.page_table_bytes(lengths, block))

@@ -32,7 +32,12 @@ TRACE_S = 3.0     # the profiled sub-window
 def _env() -> None:
     """Keep every cache the run writes inside the checkout, at fixed paths
     (the program's kernels build into ``build/kernels/`` of the checkout
-    by themselves)."""
+    by themselves).  Let PyTorch's allocator grow its segments rather than
+    keep fixed blocks, as a server with a long-context pool runs it: the
+    prompt passes' varying scores otherwise strand gigabytes between
+    blocks, and a fill near the card's capacity runs out of memory."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     cache = ROOT / "build" / "perfbench"
     os.environ.setdefault("TORCH_EXTENSIONS_DIR", str(cache / "torch_ext"))
     os.environ.setdefault("TRITON_CACHE_DIR", str(cache / "triton"))

@@ -2,9 +2,13 @@
 import ast
 import json
 import re
+import sys
+
+from pathlib import Path
 
 import pytest
 
+import architectures
 from harness import spec
 from harness.spec import BENCH_DIR, ROOT
 
@@ -104,10 +108,12 @@ def test_metrics():
 
 
 def test_configs_match_the_program_registry():
-    from repro_torch.configs import get_config
+    """Every configuration held to the program's config by its own
+    architecture (``"architecture"``, and ``"program"`` or ``"registry"``)."""
     for c in M["configs"]:
         cfg = json.loads((ROOT / c["file"]).read_text())
-        assert spec.registry_mismatches(cfg, get_config(cfg["registry"])) == []
+        arch = architectures.load(cfg)
+        assert arch.mismatches(cfg["model"], spec.program_config(cfg)) == []
         assert cfg["source"] == c["source"]
         assert cfg["reduced"] == c["reduced"]
 
@@ -134,10 +140,68 @@ def test_nothing_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for f in (BENCH_DIR / "reference").rglob("*.py"):
+    """Every module under ``reference/`` imports plain PyTorch and the
+    standard library, or another reference module, and every
+    architecture's ``reference`` is one of them."""
+    files = sorted((BENCH_DIR / "reference").rglob("*.py"))
+    assert files
+    for f in files:
         for mod in _imports(f):
             assert mod.split(".")[0] in {"torch", "math", "typing",
-                                         "__future__"}, (f, mod)
+                                         "__future__", "reference"}, (f, mod)
+    for f in sorted((BENCH_DIR / "architectures").glob("*.py")):
+        if f.stem == "__init__":
+            continue
+        arch = architectures.load({"architecture": f.stem})
+        assert Path(arch.reference.__file__).resolve() in files, f
+
+
+ARCH_IMPORTS = set(sys.stdlib_module_names) | {"torch", "architectures",
+                                               "reference"}
+
+
+def _outside_architecture(source: str) -> list:
+    """What a module's ``source`` reaches beyond torch, the standard
+    library, ``architectures`` and ``reference``: the top-level name of each
+    import outside them, and each string that names the program's package
+    or the harness as a module (as ``importlib`` would take it)."""
+    tree = ast.parse(source)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names
+                    if a.name.split(".")[0] not in ARCH_IMPORTS]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level or node.module.split(".")[0] not in ARCH_IMPORTS:
+                bad.append("." * node.level + (node.module or ""))
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            if re.match(r"(repro_torch|repro|harness)(\.|:|$)", node.value):
+                bad.append(node.value)
+    return bad
+
+
+@pytest.mark.parametrize("name", sorted(
+    p.name for p in (BENCH_DIR / "architectures").glob("*.py")))
+def test_architectures_import_nothing_of_the_program(name):
+    """An architecture describes the weights the reference judges with
+    (their skeleton and fixed leaves), so it takes nothing from the program
+    or the harness."""
+    source = (BENCH_DIR / "architectures" / name).read_text()
+    assert _outside_architecture(source) == []
+
+
+@pytest.mark.parametrize("source,bad", [
+    ("import repro_torch.models.ssm", ["repro_torch.models.ssm"]),
+    ("from repro_torch.models import ssm", ["repro_torch.models"]),
+    ("from harness import weights", ["harness"]),
+    ("import numpy", ["numpy"]),
+    ("from . import dense_gqa", ["."]),
+    ("import importlib\nm = importlib.import_module('repro_torch.x')",
+     ["repro_torch.x"]),
+    ("import math, torch\nfrom reference import dense_gqa\n"
+     "from architectures import differ", [])])
+def test_the_architecture_import_check_catches_the_program(source, bad):
+    assert _outside_architecture(source) == bad
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -2,6 +2,7 @@
 built by hand."""
 import pytest
 
+import tiny
 from harness import readers, work
 from harness.load import Request
 from harness.serve import Record, Run
@@ -12,6 +13,7 @@ PHI = {"num_hidden_layers": 32, "hidden_size": 3072,
        "intermediate_size": 8192, "vocab_size": 200064, "hidden_act": "silu"}
 MINITRON = dict(PHI, intermediate_size=9216, vocab_size=256000,
                 hidden_act="relu2")
+DENSE = tiny.dense()
 
 
 def _rec(rid, due, first=None, times=()):
@@ -21,7 +23,7 @@ def _rec(rid, due, first=None, times=()):
 
 
 def _run(records, w0=10.0, w1=20.0):
-    run = Run(PHI, {}, "cuda")
+    run = Run(PHI, {}, "cuda", DENSE)
     run.w0, run.w1 = w0, w1
     run.records = {r.req.rid: r for r in records}
     return run
@@ -94,7 +96,7 @@ def test_step_mfu_counts_the_window(name):
     run.decode_steps = [(11.0, 11.05, [1, 10], [0, 9]),
                         (21.0, 21.05, [1, 10], [0, 9])]
     peak = work.peaks(run.device_kind)["bf16_flops_per_s"]
-    want = 100.0 * (1e12 + work.decode_flops(PHI, [0, 9])) / (10.0 * peak)
+    want = 100.0 * (1e12 + DENSE.decode_flops(PHI, [0, 9])) / (10.0 * peak)
     got = load_module(BENCH_DIR / "metrics" / f"{name}.py").read(run)
     assert got == pytest.approx(want)
     run.device = "cpu"
@@ -146,14 +148,14 @@ def test_hand_counted_flops():
     # one layer's products: q 3072x3072, k and v 3072x1024 each, o
     # 3072x3072, SwiGLU 3 x 3072x8192
     per_layer = 3072 * 3072 * 2 + 2 * 3072 * 1024 + 3 * 3072 * 8192
-    assert work.layer_matmul_params(PHI) == per_layer
-    assert work.layer_matmul_params(MINITRON) == \
+    assert DENSE.layer_matmul_params(PHI) == per_layer
+    assert DENSE.layer_matmul_params(MINITRON) == \
         3072 * 3072 * 2 + 2 * 3072 * 1024 + 2 * 3072 * 9216
     # a query at position p sees p + 1 keys: positions 2, 3, 4 see 3+4+5
-    assert work.attention_flops(PHI, 2, 5) == 4 * 24 * 128 * 12 * 32
-    assert work.prompt_flops(PHI, 0, 3) == (
+    assert DENSE.attention_flops(PHI, 2, 5) == 4 * 24 * 128 * 12 * 32
+    assert DENSE.prompt_flops(PHI, 0, 3) == (
         2 * per_layer * 32 * 3 + 2 * 3072 * 200064 + 4 * 24 * 128 * 6 * 32)
-    assert work.decode_flops(PHI, [0, 9]) == (
+    assert DENSE.decode_flops(PHI, [0, 9]) == (
         2 * (2 * per_layer * 32 + 2 * 3072 * 200064)
         + 4 * 24 * 128 * (1 + 10) * 32)
 
@@ -161,7 +163,8 @@ def test_hand_counted_flops():
 def test_hand_counted_bytes():
     # K and V of 8 heads of 128 in bf16: 4 KiB a key, q and out 24 x 128
     # bf16 each a row, 4 bytes of length a row
-    assert work.decode_attention_bytes(PHI, [1, 100]) == \
+    assert work.decode_attention_bytes(DENSE.attention_widths(PHI),
+                                      [1, 100]) == \
         101 * 8 * 128 * 2 * 2 + 2 * 2 * 24 * 128 * 2 + 8
     assert work.page_table_bytes([1, 16, 17], 16) == 4 * (1 + 1 + 2)
 
@@ -173,10 +176,11 @@ def test_roofline_reads_its_kernel_only():
     run.traced_steps = [([99, 0], [99])]
     run.trace = Trace(1.0, 0.5, {"void dense_split_kernel<bf16>": (2e-6, 2),
                                  "gemm": (1e-3, 10)})
-    nbytes = 2 * work.decode_attention_bytes(run.model, [100, 1])
+    widths = DENSE.attention_widths(run.model)
+    nbytes = 2 * work.decode_attention_bytes(widths, [100, 1])
     got = readers.roofline_pct(
         run, "dense_split_kernel",
-        lambda ls: work.decode_attention_bytes(run.model, ls))
+        lambda ls: work.decode_attention_bytes(widths, ls))
     assert got == pytest.approx(100 * nbytes / 3.35e12 / 2e-6)
     assert readers.roofline_pct(run, "paged_split_kernel", len) is None
     run.traced_steps = run.traced_steps * 2      # half the launches missing
@@ -185,7 +189,7 @@ def test_roofline_reads_its_kernel_only():
     run.trace.ops["void dense_split_kernel<bf16>"] = (2e-6 * 98, 196)
     got = readers.roofline_pct(
         run, "dense_split_kernel",
-        lambda ls: work.decode_attention_bytes(run.model, ls))
+        lambda ls: work.decode_attention_bytes(widths, ls))
     assert got == pytest.approx(100 * nbytes / 3.35e12 / 2e-6)
 
 
@@ -225,7 +229,7 @@ def test_prompt_work_counted_from_host_rows(monkeypatch, kind, impl):
         def wrapped(self, params, tokens, lengths, *a, **k):
             # a padding row of the batch has length 1; the mixes' prompts
             # are all longer
-            seen.append(sum(work.prompt_flops(m, 0, int(n))
+            seen.append(sum(DENSE.prompt_flops(m, 0, int(n))
                             for n in lengths.tolist() if n > 1))
             return fn(self, params, tokens, lengths, *a, **k)
         return wrapped
@@ -234,7 +238,7 @@ def test_prompt_work_counted_from_host_rows(monkeypatch, kind, impl):
         def wrapped(self, params, caches, tokens, start, *a, **k):
             rows = {tuple(r) for r in tokens.tolist()}
             s = int(start)
-            seen.append(sum(work.prompt_flops(m, s, s + len(r))
+            seen.append(sum(DENSE.prompt_flops(m, s, s + len(r))
                             for r in rows))
             return fn(self, params, caches, tokens, start, *a, **k)
         return wrapped

@@ -38,7 +38,7 @@ def test_prompt_logits_match_the_reference(fp32_program, name):
     reg = tiny.registry(name)
     cell = tiny.cell(name=name)
     m = cell.config["model"]
-    w = weights.make_weights(m, 7, "cpu")
+    w = weights.make_weights(tiny.dense(), m, 7, "cpu")
     toks = torch.randint(1, m["vocab_size"], (2, 40),
                          generator=torch.Generator().manual_seed(0))
     lengths = torch.tensor([40, 23], dtype=torch.int32)

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import copy
 
+import architectures
 from harness.spec import Cell
 
 E2E = [("output_tokens_per_s", "tokens/s"), ("setup_s", "s")]
@@ -19,6 +20,11 @@ CLOSED = {"generator": "closed_loop",
                          "decode_impl": "paged", "num_pages": None},
           "clients": 12, "ramp_s": 0.5, "requests_per_client": 4, "prompt_len": [16, 64],
           "output_len": [6, 16]}
+
+
+def dense():
+    """The architecture of a configuration that names none."""
+    return architectures.load({})
 
 
 def registry(name: str = "phi4-mini-3.8b"):
