@@ -9,7 +9,11 @@ Layers follow the reference's period layout (``layer_layout``): layer i
 has the block ``descs[i % period]``, whose ``mixer`` is ``"attn"``,
 ``"mamba"``, ``"mlstm"`` or ``"slstm"``, whose ``mlp`` is ``"dense"``,
 ``"moe"`` or None, and whose ``cross`` adds a cross attention to the
-encoder's output.  Parameters are a dict: ``embed`` (V, D), ``unembed``
+encoder's output.  A config with a ``layer_pattern`` (Nemotron-H,
+``configs/nemotron_h_47b.py``) sets each layer's block by one character
+instead (``PATTERN_DESCS``): a Mamba mixer alone, an MLP alone (its
+``mixer`` None) or attention alone, without RoPE where the config's
+``use_rope`` is False.  Parameters are a dict: ``embed`` (V, D), ``unembed``
 (D, V), ``final_norm`` and ``layers``, a list of per-layer dicts holding
 the mixer's key, ``"xattn"`` where the block has a cross attention, and
 ``"mlp"`` or ``"moe"`` where it has one (the reference's per-period stack,
@@ -51,6 +55,8 @@ the reference, which trains without it).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
@@ -113,6 +119,23 @@ def layer_layout(cfg: ModelConfig):
     return period, descs
 
 
+# a layer_pattern's characters: a Mamba mixer, an MLP or attention alone
+PATTERN_DESCS = {"M": BlockDesc("mamba", None), "-": BlockDesc(None, "dense"),
+                 "*": BlockDesc("attn", None)}
+
+# While set, each layer's sub-blocks run inside ``record_function`` ranges
+# named by their kind (``layer.attn``, ``layer.mamba``, ``layer.mlp``, ...);
+# the serving tracer sets it around the passes it queues eagerly
+# (``Tracer.layers``), so a replayed graph records none.
+LAYER_RANGES = contextvars.ContextVar("layer_ranges", default=False)
+
+
+def _layer_range(kind: str):
+    if LAYER_RANGES.get():
+        return torch.profiler.record_function("layer." + kind)
+    return contextlib.nullcontext()
+
+
 # K/V caches are bf16 whatever the compute dtype: the reference binds it as
 # attention_cache_init's default (layers.py:285, 293)
 KV_DTYPE = torch.bfloat16
@@ -146,11 +169,20 @@ CACHE_LEAVES = {"attn": ("k", "v"), "mamba": ("ssm", "conv"),
 class Model:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
-        self.period, self.descs = layer_layout(cfg)
+        pattern = getattr(cfg, "layer_pattern", "")
+        if pattern:
+            if len(pattern) != cfg.num_layers:
+                raise ValueError(f"{cfg.name}: {cfg.num_layers} layers, "
+                                 f"pattern {pattern!r}")
+            self.descs = [PATTERN_DESCS[c] for c in pattern]
+            self.period = cfg.num_layers
+        else:
+            self.period, self.descs = layer_layout(cfg)
         self.n_periods = cfg.num_layers // self.period
         self.n_layers = cfg.num_layers
         self.layer_descs = [self.descs[i % self.period]
                             for i in range(self.n_layers)]
+        self.use_rope = getattr(cfg, "use_rope", True)
         self.mixers = [d.mixer for d in self.layer_descs]
         # layer i's row in the stacked cache leaves of its mixer kind, and
         # in the cross leaves
@@ -202,6 +234,8 @@ class Model:
         cfg = self.cfg
         if desc.mixer == "attn":
             p = {"attn": L.attention_init(generator, cfg, dtype, device)}
+        elif desc.mixer is None:
+            p = {}
         else:
             init = RECURRENT[desc.mixer].init
             p = {desc.mixer: init(generator, cfg, dtype, device)}
@@ -271,6 +305,8 @@ class Model:
         """Layer i's views of ``caches``, under its block's own names (and
         ``xk``/``xv`` for a cross layer)."""
         kind, j = self.mixers[i], self.kind_row[i]
+        if kind is None:
+            return {}
         names = CACHE_LEAVES[kind]
         prefix = "" if kind == "attn" else RECURRENT[kind].prefix
         views = {n[len(prefix):]: caches[n][j] for n in names}
@@ -283,7 +319,8 @@ class Model:
     # needs a pure causal-attention stack; a recurrent mixer's state has no
     # block-granular form, absorbs padding and is not resumable.
     def _attention_only(self) -> bool:
-        return (all(d.mixer == "attn" and not d.cross for d in self.descs)
+        return (all(d.mixer in ("attn", None) and not d.cross
+                    for d in self.descs)
                 and self.cfg.family not in ("encdec", "vlm"))
 
     @property
@@ -302,6 +339,14 @@ class Model:
         """A resumed prompt pass needs every mixer's state in the KV
         cache."""
         return self._attention_only()
+
+    @property
+    def state_leaves(self) -> tuple:
+        """The cache leaves of the recurrent mixers present: a row's state,
+        whose size does not grow with its length."""
+        return tuple(RECURRENT[k].prefix + n for k in RECURRENT
+                     if k in self.mixers for n in RECURRENT[k].cache_init(
+                         self.cfg, 1, "meta"))
 
     # ------------------------------------------------------------ stack ----
 
@@ -334,18 +379,23 @@ class Model:
         layer's cache views, is written in place (model.py:141-192)."""
         cfg = self.cfg
         if desc.mixer == "attn":
-            h, _ = L.attention(lp["attn"], x, cfg, positions=positions,
-                               kv_cache=bc, write_index=write_index,
-                               causal=causal, use_flash=self.use_flash,
-                               decode_impl=decode_impl, page_table=page_table)
-        else:
+            with _layer_range("attn"):
+                h, _ = L.attention(lp["attn"], x, cfg, positions=positions,
+                                   kv_cache=bc, write_index=write_index,
+                                   causal=causal, use_flash=self.use_flash,
+                                   decode_impl=decode_impl,
+                                   page_table=page_table,
+                                   use_rope=self.use_rope)
+            x = x + h
+        elif desc.mixer is not None:
             is_step = x.shape[1] == 1 and bc is not None
-            h, state = RECURRENT[desc.mixer].block(
-                lp[desc.mixer], x, cfg, cache=bc if is_step else None)
-            if bc is not None:
-                for name, t in state.items():
-                    bc[name].copy_(t)
-        x = x + h
+            with _layer_range(desc.mixer):
+                h, state = RECURRENT[desc.mixer].block(
+                    lp[desc.mixer], x, cfg, cache=bc if is_step else None)
+                if bc is not None:
+                    for name, t in state.items():
+                        bc[name].copy_(t)
+            x = x + h
         if desc.cross:
             if bc is not None:
                 h = self._cross_cached(lp["xattn"], x, bc["xk"], bc["xv"])
@@ -354,10 +404,12 @@ class Model:
                                    causal=False, use_rope=False)
             x = x + h
         if "moe" in lp:
-            h, aux = moe_lib.moe(lp["moe"], x, cfg)
+            with _layer_range("moe"):
+                h, aux = moe_lib.moe(lp["moe"], x, cfg)
             return x + h, aux["moe_aux_loss"]
         if "mlp" in lp:
-            x = x + L.mlp(lp["mlp"], x, cfg)
+            with _layer_range("mlp"):
+                x = x + L.mlp(lp["mlp"], x, cfg)
         return x, None
 
     def _cross_cached(self, params, x, xk, xv):

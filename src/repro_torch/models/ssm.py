@@ -17,6 +17,15 @@ are plain dicts of tensors with the reference's names and layouts; init
 draws from an explicit ``torch.Generator`` on the caller's device, one leaf
 at a time, as ``layers.py`` does.  No function here is a Pallas kernel in
 the reference, so none has a CUDA kernel.
+
+The Mamba block also takes the grouped form of Mamba-2 (Nemotron-H), where
+the config's ``ssm`` has ``n_groups`` > 1 (``configs/nemotron_h_47b.py``):
+B and C of shape (..., G, N), each shared by H/G consecutive heads, the
+conv over x and the G groups' B and C, and, with ``gate_then_norm``, the
+output times silu(z) before an RMSNorm over each group's channels.  The
+reference has no such form.  The scan runs in the grouped form only; a
+shared B and C is its one group, and gives the numbers the shared form
+gave, bit for bit on the CPU.
 """
 from __future__ import annotations
 
@@ -55,14 +64,20 @@ def _pad_seq(x, pad, value=0.0):
 
 # =================================================================== Mamba ==
 
+def _groups(s) -> int:
+    """B and C groups of the SSM config ``s`` (1: shared by every head)."""
+    return getattr(s, "n_groups", 1)
+
+
 def mamba_init(generator, cfg, dtype, device):
     """The reference's leaves and scales (ssm.py:25-44); ``A_log``, ``D``,
-    ``dt_bias`` and the norms are deterministic."""
+    ``dt_bias`` and the norms are deterministic.  A grouped config has
+    ``n_groups`` B and C in ``w_in`` and the conv."""
     s = cfg.ssm
     d = cfg.d_model
     di = s.expand * d
     nh = di // s.head_dim
-    n = s.d_state
+    n = s.d_state * _groups(s)
     conv_dim = di + 2 * n
     # the reference's linspace and log run in fp32 before the cast
     a_log = torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32,
@@ -103,11 +118,16 @@ def ssd_chunked(x, dt, a_log, b_in, c_in, chunk):
 
     x: (B,S,H,P) inputs per head; dt: (B,S,H) step sizes (>0);
     a_log: (H,) log of positive decay rates A (decay = exp(-dt·A));
-    b_in/c_in: (B,S,N) shared input/output projections (n_groups=1).
+    b_in/c_in: (B,S,G,N) input/output projections, group g's shared by
+    heads g·H/G to (g+1)·H/G - 1, or (B,S,N), one group shared by every
+    head (n_groups=1).
     Returns (y: (B,S,H,P) in x's dtype, final_state: (B,H,N,P) fp32).
     """
+    if b_in.dim() == 3:
+        b_in, c_in = b_in[:, :, None], c_in[:, :, None]
     bsz, s0, h, p = x.shape
     n = b_in.shape[-1]
+    hg = h // b_in.shape[2]                                      # heads a group
     L = min(chunk, s0)
     pad = (-s0) % L
     if pad:
@@ -121,8 +141,8 @@ def ssd_chunked(x, dt, a_log, b_in, c_in, chunk):
     lcum = torch.cumsum(da.reshape(bsz, nc, L, h), dim=2)        # (B,nc,L,H)
     xc = x.reshape(bsz, nc, L, h, p).float()
     dtc = dt.reshape(bsz, nc, L, h).float()
-    bc = b_in.reshape(bsz, nc, L, n).float()
-    cc = c_in.reshape(bsz, nc, L, n).float()
+    bc = b_in.reshape(bsz, nc, L, *b_in.shape[2:]).float()
+    cc = c_in.reshape(bsz, nc, L, *c_in.shape[2:]).float()
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
 
     state = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
@@ -130,26 +150,30 @@ def ssd_chunked(x, dt, a_log, b_in, c_in, chunk):
     for c in range(nc):
         xk, dtk, lk, bk, ck = xc[:, c], dtc[:, c], lcum[:, c], bc[:, c], cc[:, c]
         # intra-chunk: masked per-head decay attention
-        g = torch.einsum("bin,bjn->bij", ck, bk)                 # (B,L,L)
+        g = torch.einsum("bign,bjgn->bijg", ck, bk)              # (B,L,L,G)
         # exp(l_i - l_j) for j <= i, else 0: the reference multiplies by
         # the mask after the exp, whose j > i entries can overflow to inf
         # (and inf * 0 to NaN) on long chunks; masking first is the same
         # wherever the reference's value is finite
         decay = torch.exp((lk[:, :, None, :] - lk[:, None, :, :])
                           .masked_fill(~tri[None, :, :, None], -math.inf))
-        m = g[..., None] * decay                                 # (B,L,L,H)
+        m = g.repeat_interleave(hg, dim=-1) * decay              # (B,L,L,H)
         # sum_j m[b,i,j,h] dt[b,j,h] x[b,j,h,p], a batched matmul over (b,h)
         mw = (m * dtk[:, None, :, :]).permute(0, 3, 1, 2)        # (B,H,L,L)
         y_intra = torch.matmul(mw, xk.permute(0, 2, 1, 3))        # (B,H,L,P)
         y_intra = y_intra.permute(0, 2, 1, 3)                     # (B,L,H,P)
         # inter-chunk: incoming state decayed to each position
-        y_inter = torch.einsum("bin,bhnp->bihp", ck, state)
+        y_inter = torch.einsum(
+            "bign,bghnp->bighp", ck,
+            state.view(bsz, -1, hg, n, p)).reshape(bsz, L, h, p)
         y_inter = y_inter * torch.exp(lk)[..., None]
         # state update to chunk end
         total = lk[:, -1, :]                                     # (B,H)
         w = torch.exp(total[:, None, :] - lk) * dtk              # (B,L,H)
-        state = state * torch.exp(total)[..., None, None] + torch.einsum(
-            "bjn,bjhp->bhnp", bk, w[..., None] * xk)
+        upd = torch.einsum(
+            "bjgn,bjghp->bghnp", bk,
+            (w[..., None] * xk).view(bsz, L, -1, hg, p)).reshape(bsz, h, n, p)
+        state = state * torch.exp(total)[..., None, None] + upd
         ys.append((y_intra + y_inter).to(x.dtype))
     y = torch.stack(ys, dim=1).reshape(bsz, s, h, p)
     return y[:, :s0], state
@@ -157,23 +181,45 @@ def ssd_chunked(x, dt, a_log, b_in, c_in, chunk):
 
 def _ssd_step(x, dt, a_log, b_in, c_in, state):
     """The single-token recurrent step (S == 1): x (B,H,P), dt (B,H),
-    b_in/c_in (B,N), state (B,H,N,P) fp32 -> (y (B,H,P), new state)."""
+    b_in/c_in (B,N), or (B,G,N) grouped as in :func:`ssd_chunked`, state
+    (B,H,N,P) fp32 -> (y (B,H,P), new state)."""
+    if b_in.dim() == 2:
+        b_in, c_in = b_in[:, None], c_in[:, None]
     a = torch.exp(-torch.exp(a_log.float()) * dt)                 # (B,H)
-    upd = torch.einsum("bn,bhp->bhnp", b_in.float(),
-                       dt[:, :, None] * x.float())
+    bsz, h, p = x.shape
+    g, n = b_in.shape[1:]
+    dx = (dt[:, :, None] * x.float()).view(bsz, g, h // g, p)
+    upd = torch.einsum("bgn,bghp->bghnp", b_in.float(),
+                       dx).reshape(bsz, h, n, p)
     state = state * a[..., None, None] + upd
-    return torch.einsum("bn,bhnp->bhp", c_in.float(), state), state
+    y = torch.einsum("bgn,bghnp->bghp", c_in.float(),
+                     state.view(bsz, g, h // g, n, p))
+    return y.reshape(bsz, h, p), state
+
+
+def gated_group_norm(params, y, z, groups, eps):
+    """Mamba-2's gated RMSNorm, gate first: y·silu(z) in fp32, then each of
+    ``groups`` equal slices of the last axis normalised apart, times the
+    scale; returned in y's dtype."""
+    h = y.float() * _silu(z.float())
+    h = h.reshape(*h.shape[:-1], groups, -1)
+    h = h * torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + eps)
+    return (h.reshape(y.shape) * params["scale"].float()).to(y.dtype)
 
 
 def mamba_block(params, x, cfg, *, cache=None):
     """Mamba-2 SSD block. x: (B,S,D). cache: dict(ssm=(B,H,N,P), conv=(B,K-1,C))
-    for single-token decode. Returns (out, new_cache)."""
+    for single-token decode. Returns (out, new_cache).  A grouped config
+    (module docstring) runs unsharded."""
     s_cfg = cfg.ssm
     bsz, s, d = x.shape
     di = s_cfg.expand * d
     nh = di // s_cfg.head_dim
     p = s_cfg.head_dim
-    n = s_cfg.d_state
+    groups = _groups(s_cfg)
+    n = s_cfg.d_state * groups
+    if groups > 1 and isinstance(x, DTensor):
+        raise NotImplementedError("a grouped Mamba block has no sharded form")
 
     xn = rmsnorm(params["norm"], x, cfg.norm_eps)
     proj = torch.einsum("bsd,dk->bsk", xn, params["w_in"].to(COMPUTE_DTYPE))
@@ -186,6 +232,9 @@ def mamba_block(params, x, cfg, *, cache=None):
         params["conv_b"].to(COMPUTE_DTYPE), conv_state)
     xbc = _silu(xbc)
     xr, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
+    if groups > 1:
+        b_in = b_in.reshape(bsz, s, groups, s_cfg.d_state)
+        c_in = c_in.reshape(bsz, s, groups, s_cfg.d_state)
 
     dt = _softplus(dt.float() + params["dt_bias"].float())      # (B,S,H)
     x_heads = shard(xr.reshape(bsz, s, nh, p), "batch", "seq", "ssm_inner",
@@ -209,7 +258,10 @@ def mamba_block(params, x, cfg, *, cache=None):
 
     y = y.to(COMPUTE_DTYPE) + params["D"].to(COMPUTE_DTYPE)[:, None] * x_heads
     y = y.reshape(bsz, s, di)
-    y = rmsnorm(params["out_norm"], y, cfg.norm_eps) * _silu(z)
+    if getattr(s_cfg, "gate_then_norm", False):
+        y = gated_group_norm(params["out_norm"], y, z, groups, cfg.norm_eps)
+    else:
+        y = rmsnorm(params["out_norm"], y, cfg.norm_eps) * _silu(z)
     out = torch.einsum("bsk,kd->bsd", y, params["w_out"].to(COMPUTE_DTYPE))
     return shard(out, "batch", "seq", "act_embed"), new_cache
 
@@ -221,7 +273,8 @@ def mamba_cache_init(cfg, batch, device):
     return {
         "ssm": torch.zeros((batch, nh, s.d_state, s.head_dim),
                            dtype=torch.float32, device=device),
-        "conv": torch.zeros((batch, s.d_conv - 1, di + 2 * s.d_state),
+        "conv": torch.zeros((batch, s.d_conv - 1,
+                             di + 2 * s.d_state * _groups(s)),
                             dtype=COMPUTE_DTYPE, device=device),
     }
 

@@ -128,7 +128,9 @@ class PrefillEngine:
             if a.dtype == np.float64:
                 a = a.astype(np.float32)
             batch[name] = torch.as_tensor(a, device=self.device)
-        return self.model.prefill(self.params, batch, max_len=self.max_len)
+        with self.tracer.layers():
+            return self.model.prefill(self.params, batch,
+                                      max_len=self.max_len)
 
     # ------------------------------------------------------ prefix cache ----
 
@@ -194,7 +196,10 @@ class PrefillEngine:
         """Run one of each prompt pass a run will issue, without touching
         the prefix cache or the stats: a cold pass per prompt length, a
         batched pass per (width, padded length), and, on a model with
-        resumable prompt passes, a resume per (width, suffix length).
+        resumable prompt passes, a resume per (width, suffix length).  A
+        model without padded prompt passes batches only prompts of one
+        length, which the mix rarely repeats, so its batched passes are
+        warmed at width 1 alone.
         Where the reference compiles its jitted passes, the port pays its
         one-time costs here (library handles, lazy module loads, allocator
         growth), so measured TTFTs and the saturation detector never see
@@ -203,7 +208,8 @@ class PrefillEngine:
         caches = None
         for n in lengths:
             _, caches = self._prefill([0] * n)
-        widths = sorted({self._width(max(1, int(b))) for b in batch_sizes})
+        widths = sorted({self._width(max(1, int(b))) for b in batch_sizes}
+                        if self.model.supports_padded_prefill else {1})
         for n in sorted({self._padded_len(x) for x in lengths}):
             for w in widths:
                 self.model.prefill_batched(
@@ -247,8 +253,9 @@ class PrefillEngine:
                 donor = None
         t0 = time.perf_counter()
         if start > 0:
-            logits, caches = self.model.prefill_resume(
-                self.params, donor, self._tokens([tokens[start:]]), start)
+            with self.tracer.layers():
+                logits, caches = self.model.prefill_resume(
+                    self.params, donor, self._tokens([tokens[start:]]), start)
         else:
             logits, caches = self._prefill(tokens, extras)
         logits = logits[0].cpu().numpy()
@@ -344,9 +351,10 @@ class PrefillEngine:
                     toks[r, :len(tokens)] = tokens
                     lens[r] = len(tokens)
                 t0 = time.perf_counter()
-                logits, caches = self.model.prefill_batched(
-                    self.params, self._tokens(toks), self._tokens(lens),
-                    max_len=self.max_len)
+                with tr.layers():
+                    logits, caches = self.model.prefill_batched(
+                        self.params, self._tokens(toks), self._tokens(lens),
+                        max_len=self.max_len)
             with tr.span("prefill.wait"):
                 logits = logits.cpu().numpy()
             wall = time.perf_counter() - t0
@@ -381,8 +389,9 @@ class PrefillEngine:
                 stacked = donors[0] if w == 1 else {
                     n: torch.cat([d[n] for d in donors], dim=1) for n in donors[0]}
                 t0 = time.perf_counter()
-                logits, caches = self.model.prefill_resume(
-                    self.params, stacked, self._tokens(suffixes), start)
+                with tr.layers():
+                    logits, caches = self.model.prefill_resume(
+                        self.params, stacked, self._tokens(suffixes), start)
             with tr.span("prefill.wait"):
                 logits = logits.cpu().numpy()
             wall = time.perf_counter() - t0
@@ -415,15 +424,21 @@ class Slot:
 
 
 PAGED_IMPLS = ("paged", "paged_sdpa")
+# the mixers a replayed step may hold (None: an MLP-only layer)
+GRAPHED_MIXERS = {"attn", "mamba", None}
 
 
 def graphs_decode(model: Model, params, device: torch.device) -> bool:
     """Whether a decode engine replays its step as a CUDA graph: on a card,
-    with plain (unsharded) parameters, for an attention-only stack
-    (:attr:`Model.supports_paged_decode`) without MoE layers.  Every other
-    engine queues each step eagerly."""
-    return (device.type == "cuda" and model.supports_paged_decode
-            and model.cfg.moe is None
+    with plain (unsharded) parameters, for a stack of attention and Mamba
+    mixers and MLPs (a Mamba layer writes its state into the cache in
+    place, so the graph finds it by address) without MoE layers, cross
+    attention or a frontend.  Every other engine queues each step
+    eagerly."""
+    return (device.type == "cuda" and model.cfg.moe is None
+            and set(model.mixers) <= GRAPHED_MIXERS
+            and not any(d.cross for d in model.layer_descs)
+            and model.cfg.family not in ("encdec", "vlm")
             and not any(isinstance(p, DTensor) for p in leaves(params)))
 
 
@@ -564,6 +579,11 @@ class DecodeEngine:
         self._resident: "OrderedDict[int, None]" = OrderedDict()
         self.transferred_blocks = 0      # cumulative non-resident blocks
         self.admitted_blocks = 0         # cumulative blocks admitted
+        # recurrent-state bytes the hand-offs moved (a row's every state
+        # leaf, whatever the prompt's length)
+        self.state_bytes_in = 0
+        self._state = {n: t for n, t in self.caches.items()
+                       if n in model.state_leaves}
         self.graphed = graphs_decode(model, params, self.device)
         self._graphs: Dict[int, StepGraph] = {}    # table width -> graph
         self._graph_pool = None          # the graphs' memory pool
@@ -699,7 +719,15 @@ class DecodeEngine:
                                     torch.as_tensor(pages, device=self.device),
                                     block=self.page_block)
             else:
-                _insert_cache(self.caches, prefill_caches, slot, src_row=src_row)
+                _insert_cache({n: t for n, t in self.caches.items()
+                               if n not in self._state}, prefill_caches,
+                              slot, src_row=src_row)
+            if self._state:
+                with self.tracer.span("decode.admit.state", rid=request_id):
+                    _insert_cache(self._state, prefill_caches, slot,
+                                  src_row=src_row)
+                self.state_bytes_in += sum(t[:, slot].nbytes
+                                           for t in self._state.values())
             s = self.slots[slot]
             s.active = True
             s.request_id = request_id
@@ -866,9 +894,10 @@ class DecodeEngine:
         if self.paged:
             self._grow_pages()
             table = torch.as_tensor(self.page_table, device=self.device)
-        logits, self.caches = self.model.decode(
-            self.params, self.caches, tokens, lengths,
-            decode_impl=self.decode_impl, page_table=table)
+        with self.tracer.layers():
+            logits, self.caches = self.model.decode(
+                self.params, self.caches, tokens, lengths,
+                decode_impl=self.decode_impl, page_table=table)
         # torch.argmax returns the first maximal index, as np.argmax does
         return torch.argmax(logits, dim=-1)
 

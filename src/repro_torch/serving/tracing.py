@@ -27,11 +27,20 @@ The span names and what each covers:
   children ``prefill.dispatch`` up to the logits' copy to the host and
   ``prefill.wait``, that copy) and ``prefill.store`` (the passes' rows
   kept in the prefix cache).
-* ``decode.admit``: ``DecodeEngine.admit``, with the request id;
+* ``decode.admit``: ``DecodeEngine.admit``, with the request id, and
+  inside it ``decode.admit.state``: the copy of the request's recurrent
+  state (a Mamba layer's SSM and conv state) into its slot, on a model
+  that has one;
   ``decode.step``: a ``DecodeEngine.step`` that runs the model, with
   children ``decode.dispatch`` (up to the argmax being queued),
   ``decode.wait`` (its copy to the host) and ``decode.bookkeep`` (the slot
   loop and releases).
+
+While a tracer is on and a profiler records, the engines also run their
+eager passes inside :meth:`Tracer.layers`: the model then opens a
+``record_function`` range per sub-block, named by its kind (``layer.attn``,
+``layer.mamba``, ``layer.mlp``, ...; ``models/model.py``).  A replayed
+decode step records none.
 """
 from __future__ import annotations
 
@@ -39,6 +48,8 @@ import time
 from typing import List, NamedTuple, Optional, Sequence
 
 import torch
+
+from repro_torch.models.model import LAYER_RANGES
 
 
 class Span(NamedTuple):
@@ -62,6 +73,19 @@ class _Off:
 
 
 _OFF = _Off()
+
+
+class _Layers:
+    """The model's per-layer ranges switched on for a pass."""
+    __slots__ = ("token",)
+
+    def __enter__(self):
+        self.token = LAYER_RANGES.set(True)
+        return self
+
+    def __exit__(self, *exc):
+        LAYER_RANGES.reset(self.token)
+        return False
 
 
 class _Live:
@@ -112,6 +136,14 @@ class Tracer:
         if not self.enabled:
             return _OFF
         return _Live(self, name, rid, tag)
+
+    def layers(self):
+        """A context in which the model's passes open a range per layer
+        kind, where the tracer is on and a profiler records; else the
+        shared no-op."""
+        if not self.enabled or not torch._C._autograd._profiler_enabled():
+            return _OFF
+        return _Layers()
 
     def record(self, name: str, t0_ns: int, t1_ns: int, rid=None) -> None:
         """A span from explicit stamps (one that crosses ticks), with no

@@ -14,7 +14,9 @@ On the card (marked ``cuda``; they skip without one):
         tests/test_torch_decode_graph.py
 
 the reduced Phi-4-mini's replayed logits against the eager pass's, bit for
-bit, over 200 steps, dense and paged; engines that switch between replay
+bit, over 200 steps, dense and paged, and a tiny Nemotron-H's (Mamba,
+attention and MLP-only layers; K1 at its G = 8, hd = 128), whose Mamba
+layers write their state in place; engines that switch between replay
 and eager steps serve the eager engine's tokens; K1/K2 ``launches`` count
 layers x steps; and a profiler trace holds the replayed kernels, layers x
 steps of them.
@@ -29,6 +31,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_reduced  # noqa: E402
+from repro_torch.configs import nemotron_h_47b  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     decode_attention)
 from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
@@ -40,6 +43,16 @@ from repro_torch.serving import engine as E  # noqa: E402
 torch.set_num_threads(1)
 
 KERNEL = {"pallas": decode_attention, "paged": paged_attention}
+NEMOTRON_H = "nemotron-h-47b"
+
+
+def _config(arch):
+    """The reduced config of ``arch``: the registry's, or Nemotron-H's
+    own module's (K1's widths: 16 query heads over 2 of 128)."""
+    if arch == NEMOTRON_H:
+        return nemotron_h_47b.reduced(num_heads=16, num_kv_heads=2,
+                                      head_dim=128)
+    return get_reduced(arch)
 
 
 @pytest.fixture(scope="module")
@@ -64,9 +77,11 @@ CUDA = torch.device("cuda")      # a stand-in: the rule reads the type only
     ("qwen3-moe-30b-a3b", CUDA, False),       # MoE layers
     ("minitron-4b", CUDA, True),              # attention only, on a card
     ("phi4-mini-3.8b", CUDA, True),
+    (NEMOTRON_H, CUDA, True),                 # Mamba, attention, MLP, no MoE
+    (NEMOTRON_H, torch.device("cpu"), False),
 ])
 def test_rule_graphs_attention_only_stacks_on_a_card(arch, device, graphed):
-    model = Model(get_reduced(arch))
+    model = Model(_config(arch))
     params = {"embed": torch.zeros(2), "layers": [{"w": torch.zeros(2)}]}
     assert E.graphs_decode(model, params, device) is graphed
 
@@ -114,6 +129,21 @@ def direct_record(fn, pool, stream):
     return graph, graph.out
 
 
+def capture_record(engines):
+    """``direct_record`` that leaves the caches of the engine being served
+    (``engines[-1]``) as it found them, as a capture does, which launches
+    nothing: a recurrent layer's state must advance once a step, where
+    K/V written twice at one position come out the same."""
+    def record(fn, pool, stream):
+        caches = engines[-1].caches
+        kept = {n: t.clone() for n, t in caches.items()}
+        out = direct_record(fn, pool, stream)
+        for n, t in kept.items():
+            caches[n].copy_(t)
+        return out
+    return record
+
+
 def _prompt(vocab, template, n):
     return [(template * 1_000_003 + 7 * i) % vocab for i in range(n)]
 
@@ -123,13 +153,16 @@ def _prompt(vocab, template, n):
 REQUESTS = [(12, 30), (30, 40), (20, 8), (40, 44), (9, 20)]
 
 
-def serve(model, params, impl, warm):
+def serve(model, params, impl, warm, engines=None):
     """Tokens of every step of a 3-slot engine serving REQUESTS (each
-    admitted as a slot frees), the engine, and the table widths seen."""
+    admitted as a slot frees), the engine, and the table widths seen; the
+    engine is appended to ``engines`` where given."""
     pre = E.PrefillEngine(model, params, max_len=128, cache_entries=0,
                           device="cpu")
     dec = E.DecodeEngine(model, params, num_slots=3, max_len=128,
                          decode_impl=impl, device="cpu")
+    if engines is not None:
+        engines.append(dec)
     if warm:
         dec.warmup(dec.width_ladder() if dec.paged else None)
     pending = list(enumerate(REQUESTS))
@@ -147,16 +180,42 @@ def serve(model, params, impl, warm):
     return steps, dec, widths
 
 
+@pytest.fixture(scope="module")
+def hybrid():
+    model = Model(_config(NEMOTRON_H))
+    params = model.init(torch.Generator().manual_seed(0), torch.bfloat16,
+                        device="cpu")
+    return model, params
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["lazy", "warmed"])
+def test_graph_staging_serves_a_hybrids_eager_tokens(hybrid, monkeypatch,
+                                                     warm):
+    """Nemotron-H's Mamba layers keep their state in the engine's caches,
+    which the graph path reads and writes by address as it does K/V (the
+    stand-in capture leaves the state as it was, as a capture does)."""
+    engines = []
+    _staging_serves_the_eager_steps_tokens(
+        hybrid, monkeypatch, "pallas", warm,
+        record=capture_record(engines), engines=engines)
+
+
 @pytest.mark.parametrize("warm", [False, True], ids=["lazy", "warmed"])
 @pytest.mark.parametrize("impl", ["pallas", "paged"])
 def test_graph_staging_serves_the_eager_steps_tokens(phi, monkeypatch, impl,
                                                      warm):
-    model, params = phi
+    _staging_serves_the_eager_steps_tokens(phi, monkeypatch, impl, warm)
+
+
+def _staging_serves_the_eager_steps_tokens(built, monkeypatch, impl, warm,
+                                           record=direct_record,
+                                           engines=None):
+    model, params = built
     eager, ref, _ = serve(model, params, impl, warm)
     assert not ref.graphed and ref.eager_steps == len(eager)
     monkeypatch.setattr(E, "graphs_decode", lambda *a: True)
-    monkeypatch.setattr(E, "record_graph", direct_record)
-    steps, dec, widths = serve(model, params, impl, warm)
+    monkeypatch.setattr(E, "record_graph", record)
+    steps, dec, widths = serve(model, params, impl, warm, engines)
     assert dec.graphed
     assert steps == eager
     recorded = sorted(dec._graphs)
@@ -269,6 +328,14 @@ def phi_card(card):
     return model, params
 
 
+@pytest.fixture
+def hybrid_card(card):
+    model = Model(_config(NEMOTRON_H))
+    params = model.init(torch.Generator(device=card).manual_seed(0),
+                        torch.bfloat16, device=card)
+    return model, params
+
+
 CARD_STEPS = 200
 CARD_LEN = 512
 
@@ -300,7 +367,17 @@ def test_card_replayed_logits_equal_eager_bit_for_bit(phi_card, impl):
     """The pass recorded once and replayed against the eager pass on a
     copy of the same caches, fed the same tokens, 200 steps: the logits
     agree bit for bit (paged: one table wide enough for every step)."""
-    model, params = phi_card
+    _replayed_logits_equal_eager(*phi_card, impl)
+
+
+@pytest.mark.cuda
+def test_card_hybrid_replayed_logits_equal_eager_bit_for_bit(hybrid_card):
+    """As above for a tiny Nemotron-H: its Mamba states (SSM and conv),
+    rewritten in place at every step, agree bit for bit too."""
+    _replayed_logits_equal_eager(*hybrid_card, "pallas")
+
+
+def _replayed_logits_equal_eager(model, params, impl):
     (dec,) = _card_engines(model, params, impl, 1, warm=False)
     b = dec.num_slots
     if dec.paged:
@@ -315,7 +392,6 @@ def test_card_replayed_logits_equal_eager_bit_for_bit(phi_card, impl):
     g = E.StepGraph(b, 0 if table is None else table.shape[1], dec.device)
     lengths = dec._lengths()
     g.stage(dec.tokens, lengths, table)
-    eager_caches = {n: t.clone() for n, t in dec.caches.items()}
 
     def decode_pass():
         return model.decode(params, dec.caches, g.tokens, g.lengths,
@@ -325,6 +401,9 @@ def test_card_replayed_logits_equal_eager_bit_for_bit(phi_card, impl):
     with torch.cuda.stream(side):
         decode_pass()                               # the capture's warm-up
     torch.cuda.current_stream().wait_stream(side)
+    # the copy after the warm-up, which has advanced a recurrent state
+    # (K/V it wrote again at the same positions)
+    eager_caches = {n: t.clone() for n, t in dec.caches.items()}
     graph, logits = E.record_graph(decode_pass, torch.cuda.graph_pool_handle(),
                                    side)
     tokens = dec.tokens.copy()
@@ -352,12 +431,22 @@ def test_card_replay_and_eager_steps_serve_the_same_tokens(phi_card, impl):
     switches every few steps (a combine counter left non-zero by either
     would change the next step).  The tokens agree at every step, and K1
     or K2 counts layers x steps launches for each engine's steps."""
-    model, params = phi_card
+    _replay_and_eager_serve_the_same(*phi_card, impl)
+
+
+@pytest.mark.cuda
+def test_card_hybrid_replay_and_eager_serve_the_same_tokens(hybrid_card):
+    """As above for a tiny Nemotron-H: K1 launches once a step in each of
+    its attention layers."""
+    _replay_and_eager_serve_the_same(*hybrid_card, "pallas")
+
+
+def _replay_and_eager_serve_the_same(model, params, impl):
     eager, graphed, mixed = _card_engines(model, params, impl, 3)
     assert graphed.graphed and mixed.graphed
     eager._queue = eager._dispatch
     kernel = KERNEL[impl]
-    layers = model.cfg.num_layers
+    layers = model.mixers.count("attn")
     for step in range(CARD_STEPS):
         # switch mixed between eager and replayed steps: 3 of each in turn
         mixed._queue = mixed._dispatch if step // 3 % 2 else \
