@@ -166,7 +166,8 @@ PAGED_ADMITTED = 12
 # full: the bf16 instantiations on the main paths, and K3's fp32 body
 MAIN_KERNELS = {"flash_attention": ("flash_bf16_kernel", "flash_f32_"),
                 "paged_attention": "paged_split_kernelI13__nv_bfloat16Li3ELi128E",
-                "decode_attention": "dense_split_kernelI13__nv_bfloat16Li3ELi128E"}
+                "decode_attention": "dense_split_kernelI13__nv_bfloat16Li3ELi128E",
+                "ssd_step": "ssd_step_kernel"}
 # each kernel's source files, its own first, as the `kernels` line names them
 _CSRC = "src/repro_torch/csrc/"
 _SPLIT = ("decode_split.cuh", "decode_attention_common.cuh", "hopper.cuh")
@@ -174,12 +175,14 @@ SOURCES = {name: ", ".join(_CSRC + f for f in files) for name, files in {
     "decode_attention": ("decode_attention.cu", *_SPLIT),
     "paged_attention": ("paged_attention.cu", *_SPLIT),
     "flash_attention": ("flash_attention.cu", "flash_attention_f32.cuh",
-                        "hopper.cuh")}.items()}
+                        "hopper.cuh"),
+    "ssd_step": ("ssd_step.cu",)}.items()}
 REPLACES = {
     "decode_attention":
         "src/repro/kernels/decode_attention/decode_attention.py:61",
     "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:66",
-    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:80"}
+    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:80",
+    "ssd_step": "none (the JAX package's _ssd_step is plain jnp)"}
 
 
 def ptxas_lines(log: str, needle):
@@ -1196,15 +1199,17 @@ def serve_gated(torch, model, params, cfg, counters, requests, warm,
     model whose engine gates are off (recurrent mixers, an
     encoder-decoder, a VLM), after the ``warm`` ones: every request done
     with 33 tokens; K1 launched once per self-attention layer and decode
-    step and no other kernel; no prefix resumed or stored; every cold
+    step, ``ssd_step`` once per Mamba layer and decode step, and no other
+    kernel; no prefix resumed or stored; every cold
     bucket one exact length (no right-padding), and every request with
     ``extras`` its own single-request prompt pass; a cross layer's
     attention on the plain path, once a layer per prompt pass and decode
-    step; a paged decoder refused; every request routed.  Returns (K1's
-    launches, the serving line)."""
+    step; a paged decoder refused; every request routed.  Returns (each
+    kernel's launches, the serving line)."""
     from repro_torch.serving.engine import DecodeEngine
 
     n_attn = model.mixers.count("attn")
+    n_mamba = model.mixers.count("mamba")
     serve(torch, model, params, cfg, "pallas", warm, counters, max_len)
     buckets, passes, cross = [], [], [0]
     inner_b, inner_p = model.prefill_batched, model.prefill
@@ -1228,13 +1233,16 @@ def serve_gated(torch, model, params, cfg, counters, requests, warm,
             torch, model, params, cfg, "pallas", requests, counters, max_len)
     finally:
         del model.prefill_batched, model.prefill, model._cross_cached
+    k4 = launches["ssd_step"]
+    check(k4 == n_mamba * steps, f"{cfg.name}: {k4} ssd_step launches for "
+          f"{steps} decode steps of {n_mamba} Mamba layers")
     check(len(done) == 12, f"{cfg.name}: {len(done)} of 12 requests done")
     check(all(len(r.output) == 33 for r in done),
           f"{cfg.name}: output lengths {[len(r.output) for r in done]}")
     check(steps > 0 and launches["decode_attention"] == n_attn * steps,
           f"{cfg.name}: {launches['decode_attention']} K1 launches for "
           f"{steps} decode steps of {n_attn} attention layers")
-    check(sum(launches.values()) == launches["decode_attention"],
+    check(sum(launches.values()) == launches["decode_attention"] + k4,
           f"{cfg.name}: other kernels launched: {launches}")
     st = cluster.prefill.stats
     check(st.reused_blocks == 0, f"{cfg.name}: a prefix was resumed")
@@ -1264,7 +1272,8 @@ def serve_gated(torch, model, params, cfg, counters, requests, warm,
     line = serving_line(torch, done, wall)
     print(f"slice {cfg.name} pallas: 12 requests, {steps} decode steps, "
           f"{launches['decode_attention']} decode_attention launches "
-          f"({n_attn} attention layers), no other kernel, resumed blocks "
+          f"({n_attn} attention layers), {k4} ssd_step launches ({n_mamba} "
+          f"Mamba layers), no other kernel, resumed blocks "
           f"{st.reused_blocks}/{st.total_blocks}, {len(buckets)} exact-length "
           f"prompt passes, {len(passes)} single-request passes with extras, "
           f"{cross[0]} plain cached cross attentions, paged decoder refused, "
@@ -1272,15 +1281,103 @@ def serve_gated(torch, model, params, cfg, counters, requests, warm,
     del cluster, done
     gc.collect()
     torch.cuda.empty_cache()
-    return launches["decode_attention"], line
+    return launches, line
+
+
+# K4 at Nemotron-H's Mamba layer (B 32 slots, H 256, G 8, N 256, P 64), at
+# Jamba's (G 1, N 16, P 64) and at the tiny test configs' (N 4, P 16)
+SSD_SHAPES = {"nemotron_h": (32, 256, 8, 256, 64), "jamba": (4, 128, 1, 16, 64),
+              "tiny": (4, 4, 2, 4, 16)}
+
+
+def ssd_inputs(torch, gen, b, h, g, n, p, dtype):
+    """The Mamba step's inputs as the cached block hands them over: x, B
+    and C slices of one projection row, dt > 0 in fp32, A_log = log(1..H)
+    in bf16 and a random fp32 state."""
+    dev = "cuda"
+    proj = torch.randn((b, h * p + 2 * g * n + 8), generator=gen,
+                       device=dev).to(dtype)
+    x = proj[:, :h * p].view(b, h, p)
+    b_in = proj[:, h * p:h * p + g * n].view(b, g, n)
+    c_in = proj[:, h * p + g * n:h * p + 2 * g * n].view(b, g, n)
+    dt = torch.rand((b, h), generator=gen, device=dev) * 0.1 + 1e-3
+    a_log = torch.log(torch.arange(1, h + 1, dtype=torch.float32,
+                                   device=dev)).to(torch.bfloat16)
+    state = torch.randn((b, h, n, p), generator=gen, device=dev)
+    return x, dt, a_log, b_in, c_in, state
+
+
+def hold_ssd_step(torch):
+    """K4, the Mamba decode step's kernel, at every shape of SSD_SHAPES in
+    bf16 and fp32: the new state bit for bit the plain step's, written in
+    place; y within twice the fp32 summation-order error of N terms of the
+    plain step's; two runs from one state bit-identical.  Then timed at
+    Nemotron-H's shape in bf16 over states past the L2, beside the plain
+    step with its copy back into the cache (what the path ran before K4)
+    and the bound: the state read once and written once.  Returns K4's
+    record; phase 10 adds its launches on Jamba's serving path."""
+    from repro_torch.kernels.ssd_step import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = 0.0
+    for shape, (b, h, g, n, p) in SSD_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            args = ssd_inputs(torch, gen, b, h, g, n, p, dtype)
+            start = args[-1].clone()
+            want_y, want = ops.ssd_step_plain(*args)
+            y, got = ops.ssd_step(*args)
+            check(got is args[-1], f"K4 {shape}: state not updated in place")
+            check(torch.equal(got, want), f"K4 {shape} {dtype}: state differs "
+                  f"from the plain step's")
+            c = args[4].float().reshape(b, g, 1, n, 1)
+            mag = (c.abs() * want.abs().view(b, g, h // g, n, p)).sum(3)
+            bound = (2 * n * torch.finfo(torch.float32).eps
+                     * mag.reshape(b, h, p))
+            err = (y - want_y).abs()
+            check(bool((err <= bound).all()), f"K4 {shape} {dtype}: y off by "
+                  f"{float(err.max()):.3g}, past the summation bound")
+            worst = max(worst, float(err.max()))
+            args[-1].copy_(start)
+            y2, again = ops.ssd_step(*args)
+            check(torch.equal(y2, y) and torch.equal(again, want),
+                  f"K4 {shape} {dtype}: two runs differ")
+            del args, start, want, want_y, y, y2, got, again
+    torch.cuda.synchronize()
+    print(f"K4 ssd_step {list(SSD_SHAPES)}, bf16 and fp32: state bit-equal "
+          f"to the plain step's, in place; y max err {worst:.3g}; repeated "
+          f"runs bit-identical")
+
+    b, h, g, n, p = SSD_SHAPES["nemotron_h"]
+    sets = [ssd_inputs(torch, gen, b, h, g, n, p, torch.bfloat16)
+            for _ in range(2)]                  # 1.07 GB of state
+    state_bytes = b * h * n * p * 4
+    moved = (2 * state_bytes + b * h * p * (2 + 4)    # x in, y out
+             + b * h * 4 + h * 2 + 2 * b * g * n * 2)  # dt, A_log, B, C
+    bound_ms = moved / peaks().HBM_BW * 1e3
+
+    def plain(*args):
+        args[-1].copy_(ops.ssd_step_plain(*args)[1])
+    rec = dict(name="ssd_step", route="cuda", source=SOURCES["ssd_step"],
+               replaces=REPLACES["ssd_step"], max_abs_err=worst,
+               ms=time_ms(torch, ops.ssd_step, sets),
+               plain_ms=time_ms(torch, plain, sets), bound_ms=bound_ms,
+               bound_by="bytes", library_ms=None)
+    del sets
+    torch.cuda.empty_cache()
+    print(f"ssd_step: kernel {rec['ms']:.4f} ms, bound {bound_ms:.4f} ms "
+          f"(bytes: {moved / 1e9:.4f} GB), {bound_ms / rec['ms']:.1%} of it; "
+          f"plain with the cache copy {rec['plain_ms']:.4f} ms (bf16, B={b}, "
+          f"H={h}, G={g}, N={n}, P={p}; no library call computes it)")
+    return rec
 
 
 def phase_recurrent(torch, F, counters):
     """The SSM and hybrid families at full width: K1 held and timed at
     Jamba's attention shape (G = 4, hd = 128, K = 8; Jamba has no paged
-    path), then jamba-v0.1-52b at 16 of its 32 layers and xlstm-125m at
-    full size, each served as phase 3 serves (K1 only) and walked as phase
-    4 walks (``"pallas"`` against ``"sdpa"``)."""
+    path) and K4 (``hold_ssd_step``), then jamba-v0.1-52b at 16 of its 32
+    layers and xlstm-125m at full size, each served as phase 3 serves (K1
+    and K4 only) and walked as phase 4 walks (``"pallas"`` against
+    ``"sdpa"``); K4's launches are Jamba's."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1292,6 +1389,7 @@ def phase_recurrent(torch, F, counters):
     gen = torch.Generator(device="cuda").manual_seed(3)
     records = hold_decode_kernels(torch, F, gen, h, kh, hd, suffix,
                                   paged=False)
+    records.append(hold_ssd_step(torch))
     for arch_cfg in (cfg, get_config(SSM_ARCH)):
         t0 = time.perf_counter()
         model, params = init_on_card(torch, arch_cfg)
@@ -1299,9 +1397,11 @@ def phase_recurrent(torch, F, counters):
         launches, _ = serve_gated(torch, model, params, arch_cfg, counters,
                                   requests, warm)
         if arch_cfg is cfg:
-            records[0]["launches"] = launches
+            records[0]["launches"] = launches["decode_attention"]
+            records[1]["launches"] = launches["ssd_step"]
         else:
-            check(launches == 0, f"{arch_cfg.name}: {launches} K1 launches")
+            check(launches["decode_attention"] == 0,
+                  f"{arch_cfg.name}: {launches} K1 launches")
         phase_walk(torch, model, params, arch_cfg, paged=False)
         print(f"{arch_cfg.name}: served and walked in "
               f"{time.perf_counter() - t0:.1f} s")
@@ -1386,8 +1486,9 @@ def phase_multimodal(torch, F, counters, gpu):
     t0 = time.perf_counter()
     model, params = init_on_card(torch, vlm)
     requests, warm, walk_patches = vlm_requests(vlm)
-    k1_vlm["launches"], line = serve_gated(
+    launches, line = serve_gated(
         torch, model, params, vlm, counters, requests, warm, VLM_MAX_LEN)
+    k1_vlm["launches"] = launches["decode_attention"]
     # With its random patches the VLM amplifies last-bit differences: two
     # plain paths with fp32 attention that differ only in summation order
     # land 0.008-0.014 x spread apart, and the bf16 probabilities of
@@ -1412,9 +1513,10 @@ def phase_multimodal(torch, F, counters, gpu):
     t0 = time.perf_counter()
     model, params = init_on_card(torch, encdec)
     requests, warm, walk_frames = encdec_requests(encdec)
-    k1_encdec["launches"], line = serve_gated(
+    launches, line = serve_gated(
         torch, model, params, encdec, counters, requests, warm,
         ENCDEC_MAX_LEN)
+    k1_encdec["launches"] = launches["decode_attention"]
     walk = phase_walk(torch, model, params, encdec, paged=False, n_prompt=48,
                       extras={"frames": walk_frames}, max_len=ENCDEC_MAX_LEN,
                       watch=("k1_plain",))
@@ -1692,7 +1794,8 @@ def phase_sharded(torch, F, model, params, cfg, gpu, counters):
             k1 = launches["decode_attention"]
             want = model.mixers.count("attn") * SHARD_STEPS
             check(launches == {"decode_attention": want,
-                               "paged_attention": 0, "flash_attention": 0},
+                               "paged_attention": 0, "flash_attention": 0,
+                               "ssd_step": 0},
                   f"phase 13: launches {launches} under the policy, "
                   f"expected {want} of K1 and no other kernel")
             check(all(type(a) is torch.Tensor for a in seen),
@@ -2214,7 +2317,7 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import (build, decode_attention, flash_attention,
-                                     paged_attention)
+                                     paged_attention, ssd_step)
 
     gpu = gpu_line()
     print(f"gpu: {gpu}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -2237,6 +2340,12 @@ def main() -> int:
           f"fp32 flash kernels: spill stores {f32}")
     print(f"  flash_attention fp32: {len(f32)} kernels, 0 bytes of spill "
           f"stores")
+    # K4 at P 16-128, bf16 and fp32: its state lives in registers
+    k4 = spill_stores(paths["ssd_step"].with_suffix(".log").read_text(),
+                      "ssd_step_kernel")
+    check(len(k4) == 8 and not any(k4.values()),
+          f"ssd_step kernels: spill stores {k4}")
+    print(f"  ssd_step: {len(k4)} kernels, 0 bytes of spill stores")
 
     t0 = time.perf_counter()
     records = phase_kernels(torch, F)
@@ -2245,7 +2354,7 @@ def main() -> int:
 
     cfg = get_config("phi4-mini-3.8b")
     model, params = init_on_card(torch, cfg)
-    counters = (decode_attention, paged_attention, flash_attention)
+    counters = (decode_attention, paged_attention, flash_attention, ssd_step)
     t0 = time.perf_counter()
     launches = phase_slice(torch, model, params, cfg, counters)
     print(f"phase 3: slice served ({time.perf_counter() - t0:.1f} s)")

@@ -27,7 +27,8 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("decode_attention", "paged_attention", "flash_attention")
+KERNELS = ("decode_attention", "paged_attention", "flash_attention",
+           "ssd_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-lcuda",)           # after the source: cuTensorMapEncodeTiled

@@ -394,7 +394,8 @@ class Model:
                     lp[desc.mixer], x, cfg, cache=bc if is_step else None)
                 if bc is not None:
                     for name, t in state.items():
-                        bc[name].copy_(t)
+                        if t is not bc[name]:    # else written in place
+                            bc[name].copy_(t)
             x = x + h
         if desc.cross:
             if bc is not None:

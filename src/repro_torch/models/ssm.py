@@ -16,7 +16,11 @@ gates are fp32; the conv state and the projections run in
 are plain dicts of tensors with the reference's names and layouts; init
 draws from an explicit ``torch.Generator`` on the caller's device, one leaf
 at a time, as ``layers.py`` does.  No function here is a Pallas kernel in
-the reference, so none has a CUDA kernel.
+the reference.  The Mamba decode step has a CUDA kernel all the same,
+since it is bound by its state's bytes: the cached branch of
+:func:`mamba_block` runs ``kernels.ssd_step``, the kernel on a card and
+the plain step, ``ssd_step_plain``, on the CPU, and on both writes the
+new SSM state into the cache and returns it.
 
 The Mamba block also takes the grouped form of Mamba-2 (Nemotron-H), where
 the config's ``ssm`` has ``n_groups`` > 1 (``configs/nemotron_h_47b.py``):
@@ -35,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
+from repro_torch.kernels.ssd_step.ops import ssd_step, ssd_step_plain
 from repro_torch.models.layers import (COMPUTE_DTYPE, _init, head_einsum,
                                        merge_heads, on_local_shards,
                                        rmsnorm, rmsnorm_init)
@@ -179,24 +184,6 @@ def ssd_chunked(x, dt, a_log, b_in, c_in, chunk):
     return y[:, :s0], state
 
 
-def _ssd_step(x, dt, a_log, b_in, c_in, state):
-    """The single-token recurrent step (S == 1): x (B,H,P), dt (B,H),
-    b_in/c_in (B,N), or (B,G,N) grouped as in :func:`ssd_chunked`, state
-    (B,H,N,P) fp32 -> (y (B,H,P), new state)."""
-    if b_in.dim() == 2:
-        b_in, c_in = b_in[:, None], c_in[:, None]
-    a = torch.exp(-torch.exp(a_log.float()) * dt)                 # (B,H)
-    bsz, h, p = x.shape
-    g, n = b_in.shape[1:]
-    dx = (dt[:, :, None] * x.float()).view(bsz, g, h // g, p)
-    upd = torch.einsum("bgn,bghp->bghnp", b_in.float(),
-                       dx).reshape(bsz, h, n, p)
-    state = state * a[..., None, None] + upd
-    y = torch.einsum("bgn,bghnp->bghp", c_in.float(),
-                     state.view(bsz, g, h // g, n, p))
-    return y.reshape(bsz, h, p), state
-
-
 def gated_group_norm(params, y, z, groups, eps):
     """Mamba-2's gated RMSNorm, gate first: y·silu(z) in fp32, then each of
     ``groups`` equal slices of the last axis normalised apart, times the
@@ -232,21 +219,26 @@ def mamba_block(params, x, cfg, *, cache=None):
         params["conv_b"].to(COMPUTE_DTYPE), conv_state)
     xbc = _silu(xbc)
     xr, b_in, c_in = torch.split(xbc, [di, n, n], dim=-1)
-    if groups > 1:
-        b_in = b_in.reshape(bsz, s, groups, s_cfg.d_state)
-        c_in = c_in.reshape(bsz, s, groups, s_cfg.d_state)
+    # (B,S,G,N): a shared B and C is one group
+    b_in = b_in.reshape(bsz, s, groups, s_cfg.d_state)
+    c_in = c_in.reshape(bsz, s, groups, s_cfg.d_state)
 
     dt = _softplus(dt.float() + params["dt_bias"].float())      # (B,S,H)
     x_heads = shard(xr.reshape(bsz, s, nh, p), "batch", "seq", "ssm_inner",
                     None)
 
     # the scan is independent per batch row and head: under a policy it
-    # runs on each rank's local shards
+    # runs on each rank's local shards.  The step writes the new state
+    # into cache["ssm"] and returns it (Model._layer copies no leaf onto
+    # itself).  The dry run's meta tensors take the plain step: no kernel
+    # takes them, and its counter counts the plain step's operations as
+    # it counts the reference's jnp step
     if cache is not None:
+        step = ssd_step_plain if x.is_meta else ssd_step
         y, state = on_local_shards(
-            _ssd_step, [(x_heads[:, 0], 0, 1), (dt[:, 0], 0, 1),
-                        (params["A_log"], None, 0), (b_in[:, 0], 0, None),
-                        (c_in[:, 0], 0, None), (cache["ssm"], 0, 1)],
+            step, [(x_heads[:, 0], 0, 1), (dt[:, 0], 0, 1),
+                   (params["A_log"], None, 0), (b_in[:, 0], 0, None),
+                   (c_in[:, 0], 0, None), (cache["ssm"], 0, 1)],
             ((0, 1), (0, 1)), heads=nh)
         y = y[:, None]                                            # (B,1,H,P)
     else:

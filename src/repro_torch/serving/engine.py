@@ -38,13 +38,14 @@ from repro_torch import resolve_device
 from repro_torch.core.radix import BLOCK_SIZE, block_hashes
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.ssd_step.ops import ssd_step
 from repro_torch.models.model import Model
 from repro_torch.serving.paging import PageAllocator
 from repro_torch.serving.tracing import Tracer
 from repro_torch.training.optimizer import leaves
 
 # the kernel wrappers whose ``launches`` a decode pass advances
-DECODE_KERNELS = (decode_attention, paged_attention)
+DECODE_KERNELS = (decode_attention, paged_attention, ssd_step)
 
 
 def _synchronize(device: torch.device) -> None:

@@ -407,9 +407,10 @@ def test_encdec_vlm_walk_kernel_vs_plain(dev, name, stub, hd):
                                        ("xlstm-125m", "mlstm"),
                                        ("xlstm-125m", "slstm")])
 def test_recurrent_block_on_card_matches_cpu(dev, name, kind, monkeypatch):
-    """A recurrent block (no kernel: einsum and loop code) on the card
-    against the same block on the CPU in fp32, prompt pass and cached
-    step: the CUDA ops (cummax, logaddexp, the batched products) agree."""
+    """A recurrent block (einsum and loop code; the Mamba block's cached
+    step runs ``ssd_step``'s kernel) on the card against the same block on
+    the CPU in fp32, prompt pass and cached step: the CUDA ops (cummax,
+    logaddexp, the batched products, the kernel) agree."""
     from repro_torch.models import ssm
     monkeypatch.setattr(ssm, "COMPUTE_DTYPE", torch.float32)
     cfg = get_reduced(name)

@@ -16,10 +16,11 @@ On the card (marked ``cuda``; they skip without one):
 the reduced Phi-4-mini's replayed logits against the eager pass's, bit for
 bit, over 200 steps, dense and paged, and a tiny Nemotron-H's (Mamba,
 attention and MLP-only layers; K1 at its G = 8, hd = 128), whose Mamba
-layers write their state in place; engines that switch between replay
-and eager steps serve the eager engine's tokens; K1/K2 ``launches`` count
-layers x steps; and a profiler trace holds the replayed kernels, layers x
-steps of them.
+layers write their state in place through the ``ssd_step`` kernel inside
+the graph; engines that switch between replay and eager steps serve the
+eager engine's tokens; K1/K2 and ``ssd_step`` ``launches`` count layers x
+steps, and a recorded graph's launches are its layers of each kind; and a
+profiler trace holds the replayed kernels, layers x steps of them.
 """
 import os
 import tempfile
@@ -36,6 +37,7 @@ from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
     decode_attention)
 from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
     paged_attention)
+from repro_torch.kernels.ssd_step.ops import ssd_step  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.serving import engine as E  # noqa: E402
@@ -437,7 +439,8 @@ def test_card_replay_and_eager_steps_serve_the_same_tokens(phi_card, impl):
 @pytest.mark.cuda
 def test_card_hybrid_replay_and_eager_serve_the_same_tokens(hybrid_card):
     """As above for a tiny Nemotron-H: K1 launches once a step in each of
-    its attention layers."""
+    its attention layers and ``ssd_step`` once in each Mamba layer, and
+    its recorded graph holds that many of each."""
     _replay_and_eager_serve_the_same(*hybrid_card, "pallas")
 
 
@@ -445,17 +448,21 @@ def _replay_and_eager_serve_the_same(model, params, impl):
     eager, graphed, mixed = _card_engines(model, params, impl, 3)
     assert graphed.graphed and mixed.graphed
     eager._queue = eager._dispatch
-    kernel = KERNEL[impl]
-    layers = model.mixers.count("attn")
+    # launches a step: one a layer of the kernel's kind
+    layers = {KERNEL[impl]: model.mixers.count("attn"),
+              ssd_step: model.mixers.count("mamba")}
+    recorded = dict.fromkeys(E.DECODE_KERNELS, 0) | layers
+    assert all(g.launches == recorded for g in graphed._graphs.values())
     for step in range(CARD_STEPS):
         # switch mixed between eager and replayed steps: 3 of each in turn
         mixed._queue = mixed._dispatch if step // 3 % 2 else \
             types.MethodType(E.DecodeEngine._queue, mixed)
         outs = []
         for dec in (eager, graphed, mixed):
-            before = kernel.launches
+            before = {k: k.launches for k in layers}
             outs.append(dec.step())
-            assert kernel.launches - before == layers, (step, dec is eager)
+            made = {k: k.launches - n for k, n in before.items()}
+            assert made == layers, (step, dec is eager)
         assert outs[0] == outs[1] == outs[2], f"step {step}"
     assert graphed.graph_replays == CARD_STEPS and graphed.eager_steps == 0
     assert mixed.graph_replays == sum(s // 3 % 2 == 0
