@@ -21,7 +21,7 @@ numpy seeds), and then:
   inputs) on the host clock and traces it the same way.
 
 An engine that replays its step as a CUDA graph (``serving.engine.
-graphs_decode``: attention-only models without MoE) records it in the
+graphs_decode``: attention and Mamba stacks without MoE) records it in the
 first tick, before the ranges are added, so its traced ticks hold the
 kernels but no layer-kind ranges; models decoded eagerly hold both.
 

@@ -164,6 +164,8 @@ CACHE_LEAVES = {"attn": ("k", "v"), "mamba": ("ssm", "conv"),
                 "mlstm": ("mlstm_C", "mlstm_n", "mlstm_m"),
                 "slstm": ("slstm_c", "slstm_n", "slstm_h", "slstm_m"),
                 "cross": ("xk", "xv")}
+# the mixers a replayed decode step may hold (None: an MLP-only layer)
+GRAPHED_MIXERS = {"attn", "mamba", None}
 
 
 class Model:
@@ -339,6 +341,16 @@ class Model:
         """A resumed prompt pass needs every mixer's state in the KV
         cache."""
         return self._attention_only()
+
+    @property
+    def supports_graph_decode(self) -> bool:
+        """A decode step a CUDA graph can replay: a stack of attention and
+        Mamba mixers and MLPs, each writing its cache in place (a Mamba
+        layer its state too), so the graph finds them by address; no MoE
+        layer, cross attention or frontend."""
+        return (self.cfg.moe is None and set(self.mixers) <= GRAPHED_MIXERS
+                and not self.n_cross
+                and self.cfg.family not in ("encdec", "vlm"))
 
     @property
     def state_leaves(self) -> tuple:
@@ -519,28 +531,33 @@ class Model:
         the tokens'; an encoder-decoder's hold its cross K/V
         (model.py:348-364)."""
         x, enc_out, _ = self._embed_inputs(params, batch)
-        b, s = x.shape[0], x.shape[1]
-        caches = self.cache_init(b, max_len or s, x.device)
-        if self.cfg.family == "encdec" and enc_out is not None:
-            self._fill_cross_cache(params, caches, enc_out)
-        positions = torch.arange(s, device=x.device)
-        x, _ = self._run_stack(params, x, caches, positions=positions,
-                               write_index=0, enc_out=enc_out)
+        x, caches = self._prompt_stack(params, x, max_len, enc_out)
         return self._logits(params, x[:, -1:]), caches
 
     def prefill_batched(self, params, tokens, lengths, max_len=None):
         """Ragged prompt batch, each row right-padded to S; row i's logits
         are taken at position ``lengths[i] - 1`` (model.py:366-398)."""
         x = shard(self._embed(params, tokens), "batch", "seq", "act_embed")
+        x, caches = self._prompt_stack(params, x, max_len)
         b, s = x.shape[0], x.shape[1]
-        caches = self.cache_init(b, max_len or s, x.device)
-        positions = torch.arange(s, device=x.device)
-        x, _ = self._run_stack(params, x, caches, positions=positions,
-                            write_index=0)
         lengths = torch.as_tensor(lengths, device=x.device).long()
         idx = torch.clamp(lengths - 1, 0, s - 1)
         x = x[torch.arange(b, device=x.device), idx][:, None]
         return self._logits(params, x), caches
+
+    def _prompt_stack(self, params, x, max_len, enc_out=None):
+        """A prompt pass of the embedded inputs ``x`` (B, S, D) from
+        position 0 into fresh caches sized ``max_len`` (S if None), an
+        encoder-decoder's cross K/V filled from ``enc_out`` first.
+        Returns (the stack's output, the caches)."""
+        b, s = x.shape[0], x.shape[1]
+        caches = self.cache_init(b, max_len or s, x.device)
+        if enc_out is not None:
+            self._fill_cross_cache(params, caches, enc_out)
+        positions = torch.arange(s, device=x.device)
+        x, _ = self._run_stack(params, x, caches, positions=positions,
+                               write_index=0, enc_out=enc_out)
+        return x, caches
 
     def prefill_resume(self, params, caches, tokens, start):
         """Continue a prompt pass from position ``start``: ``caches`` holds

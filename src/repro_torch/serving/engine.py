@@ -154,18 +154,73 @@ class PrefillEngine:
         self.stats.hits += donor is not None
         return best, donor
 
-    def _store(self, hashes: Sequence[int], caches) -> None:
-        """Keep ``caches`` as the donor of the prompt ``hashes``; only a
-        model with resumable prompt passes keeps any (engine.py:353)."""
-        if not hashes or self.cache_entries <= 0 \
-                or not self.model.supports_prefill_resume:
+    def _resumable(self, extras=None) -> bool:
+        """Whether a prompt pass may resume from, and be stored in, the
+        prefix cache: a model with resumable prompt passes, a cache with
+        room, and no multimodal ``extras``."""
+        return (self.model.supports_prefill_resume and not extras
+                and self.cache_entries > 0)
+
+    def _match(self, tokens: Sequence[int], hashes, extras=None):
+        """``(hashes, start, donor)`` of a prompt: its block hashes (hashed
+        here where none were given and the pass may resume), and the
+        position and donor a resumed pass starts from (0 and None: a cold
+        pass).  At least one suffix token is kept, so the pass emits this
+        prompt's logits."""
+        resumable = self._resumable(extras)
+        if hashes is None and resumable:
+            hashes = block_hashes(tokens, self.block_size)
+        hashes = tuple(hashes or ())
+        if not (resumable and hashes):
+            return hashes, 0, None
+        m, donor = self._best_match(hashes)
+        start = min(m * self.block_size, len(tokens) - 1)
+        if start <= 0:
+            return hashes, 0, None
+        return hashes, start, donor
+
+    def _store(self, hashes: Sequence[int], caches, row=None) -> None:
+        """Keep ``caches`` (its row ``row``, cut and copied, where given)
+        as the donor of the prompt ``hashes``; only a model with
+        resumable prompt passes keeps any (engine.py:353), so only then is
+        a row cut."""
+        if not hashes or not self._resumable():
             return
+        if row is not None:
+            caches = _row(caches, row)
         key = tuple(hashes)
         self._cache[key] = caches
         self._cache.move_to_end(key)
         while len(self._cache) > self.cache_entries:
             self._cache.popitem(last=False)
             self.stats.evictions += 1
+
+    def _count_row(self, tokens: Sequence[int], hashes, start: int = 0,
+                   computed: bool = True) -> None:
+        """One request in the stats: a row computed from ``start`` (0: a
+        cold row) reuses the blocks below it; a row that shares another's
+        pass (``computed`` False) counts its prompt alone."""
+        st = self.stats
+        st.requests += 1
+        st.total_blocks += len(hashes)
+        st.total_tokens += len(tokens)
+        if computed:
+            st.reused_blocks += start // self.block_size
+            st.computed_tokens += len(tokens) - start
+            st.flops += self._flops_per_token * (len(tokens) - start)
+
+    def _count_pass(self, wall: float, rows: int = 0,
+                    padded: int = 0) -> None:
+        """One prompt pass in the stats: its wall time, and for a batched
+        pass of ``rows`` requests (0: the single-request pass, which is no
+        batch) the batch and its ``padded`` pad tokens."""
+        st = self.stats
+        st.wall_s += wall
+        if rows:
+            st.batches += 1
+            st.padded_tokens += padded
+            if rows > 1:
+                st.batched_requests += rows
 
     def clear_cache(self) -> None:
         self._cache.clear()
@@ -239,37 +294,18 @@ class PrefillEngine:
         (or a model without resumable prefill, or multimodal ``extras``,
         which is never resumed nor stored) pays the full pass.  Always
         recomputes at least the last token."""
-        resumable = (self.model.supports_prefill_resume and not extras
-                     and self.cache_entries > 0)
-        if hashes is None and resumable:
-            hashes = block_hashes(tokens, self.block_size)
-        hashes = tuple(hashes or ())
-        start = 0
-        donor = None
-        if resumable and hashes:
-            m, donor = self._best_match(hashes)
-            # keep >=1 suffix token so the pass emits this prompt's logits
-            start = min(m * self.block_size, len(tokens) - 1)
-            if start <= 0:
-                donor = None
+        hashes, start, donor = self._match(tokens, hashes, extras)
         t0 = time.perf_counter()
-        if start > 0:
+        if donor is not None:
             with self.tracer.layers():
                 logits, caches = self.model.prefill_resume(
                     self.params, donor, self._tokens([tokens[start:]]), start)
         else:
             logits, caches = self._prefill(tokens, extras)
         logits = logits[0].cpu().numpy()
-        wall = time.perf_counter() - t0
-        st = self.stats
-        st.requests += 1
-        st.total_blocks += len(hashes)
-        st.reused_blocks += start // self.block_size
-        st.total_tokens += len(tokens)
-        st.computed_tokens += len(tokens) - start
-        st.flops += self._flops_per_token * (len(tokens) - start)
-        st.wall_s += wall
-        if resumable:
+        self._count_pass(time.perf_counter() - t0)
+        self._count_row(tokens, hashes, start)
+        if not extras:
             self._store(hashes, caches)
         return logits, caches
 
@@ -291,9 +327,6 @@ class PrefillEngine:
         with self.tracer.span("prefill.batch"):
             n = len(requests)
             results: List[Optional[Tuple[np.ndarray, dict, int]]] = [None] * n
-            st = self.stats
-            can_resume = self.model.supports_prefill_resume and \
-                self.cache_entries > 0
             cold: dict = {}     # padded_len -> [(idx, tokens, hashes)]
             resume: dict = {}   # (start, plen) -> [(idx, tokens, hashes, donor)]
             alias: List[Tuple[int, int]] = []   # (dup idx, primary idx)
@@ -310,15 +343,7 @@ class PrefillEngine:
                     alias.append((i, seen[key]))
                     continue
                 seen[key] = i
-                if hashes is None and can_resume:
-                    hashes = block_hashes(tokens, self.block_size)
-                hashes = tuple(hashes or ())
-                start, donor = 0, None
-                if can_resume and hashes:
-                    m, donor = self._best_match(hashes)
-                    start = min(m * self.block_size, len(tokens) - 1)
-                    if start <= 0:
-                        start, donor = 0, None
+                hashes, start, donor = self._match(tokens, hashes)
                 if donor is not None:
                     resume.setdefault((start, len(tokens)), []).append(
                         (i, tokens, hashes, donor))
@@ -335,84 +360,66 @@ class PrefillEngine:
                                            results)
             for i, j in alias:
                 results[i] = results[j]
-                st.requests += 1
-                st.total_blocks += len(tuple(requests[i][2] or ()))
-                st.total_tokens += len(requests[i][0])
+                tokens, _, hashes = requests[i]
+                self._count_row(tokens, tuple(hashes or ()), computed=False)
         return results
 
     def _run_cold_chunk(self, plen: int, group, results) -> None:
-        tr = self.tracer
-        rows = tuple(i for i, *_ in group) if tr.enabled else None
-        with tr.span("prefill.pass", rid=rows, tag="cold"):
-            with tr.span("prefill.dispatch"):
-                w = self._width(len(group))
-                toks = np.zeros((w, plen), np.int32)
-                lens = np.ones((w,), np.int32)
-                for r, (_, tokens, _) in enumerate(group):
-                    toks[r, :len(tokens)] = tokens
-                    lens[r] = len(tokens)
-                t0 = time.perf_counter()
-                with tr.layers():
-                    logits, caches = self.model.prefill_batched(
-                        self.params, self._tokens(toks), self._tokens(lens),
-                        max_len=self.max_len)
-            with tr.span("prefill.wait"):
-                logits = logits.cpu().numpy()
-            wall = time.perf_counter() - t0
-        st = self.stats
-        st.batches += 1
-        st.wall_s += wall
-        if len(group) > 1:
-            st.batched_requests += len(group)
-        st.padded_tokens += int(np.sum(plen - lens[:len(group)])) \
-            + (w - len(group)) * plen
-        with tr.span("prefill.store"):
-            for r, (i, tokens, hashes) in enumerate(group):
-                st.requests += 1
-                st.total_blocks += len(hashes)
-                st.total_tokens += len(tokens)
-                st.computed_tokens += len(tokens)
-                st.flops += self._flops_per_token * len(tokens)
-                results[i] = (logits[r], caches, r)
-                if hashes and self.cache_entries > 0:
-                    self._store(hashes, _row(caches, r))
+        """One right-padded ragged pass over ``group``'s prompts, each
+        ``(i, tokens, hashes)``, at padded length ``plen``."""
+        def inputs(w):
+            toks = np.zeros((w, plen), np.int32)
+            lens = np.ones((w,), np.int32)
+            for r, (_, tokens, _) in enumerate(group):
+                toks[r, :len(tokens)] = tokens
+                lens[r] = len(tokens)
+            padded = int(np.sum(plen - lens[:len(group)])) \
+                + (w - len(group)) * plen
+            return (lambda: self.model.prefill_batched(
+                self.params, self._tokens(toks), self._tokens(lens),
+                max_len=self.max_len)), padded
+        self._run_chunk("cold", 0, group, results, inputs)
 
     def _run_resume_chunk(self, start: int, group, results) -> None:
+        """One stacked-donor pass over ``group``'s prompts, each ``(i,
+        tokens, hashes, donor)``, resumed from ``start``."""
+        def inputs(w):
+            suffixes = np.stack(
+                [np.asarray(tokens[start:], np.int32)
+                 for _, tokens, _, _ in group]
+                + [np.asarray(group[0][1][start:], np.int32)]
+                * (w - len(group)))
+            donors = [d for *_, d in group] + [group[0][3]] * (w - len(group))
+            stacked = donors[0] if w == 1 else {
+                n: torch.cat([d[n] for d in donors], dim=1) for n in donors[0]}
+            return (lambda: self.model.prefill_resume(
+                self.params, stacked, self._tokens(suffixes), start)), \
+                (w - len(group)) * suffixes.shape[1]
+        self._run_chunk("resumed", start, group, results, inputs)
+
+    def _run_chunk(self, tag: str, start: int, group, results,
+                   inputs) -> None:
+        """A batched prompt pass over ``group`` (rows from ``start``; 0:
+        cold), its rows' results, stats and prefix-cache entries.
+        ``inputs(width)`` builds the padded batch and returns (the model's
+        pass over it, the pad tokens it runs)."""
         tr = self.tracer
         rows = tuple(i for i, *_ in group) if tr.enabled else None
-        with tr.span("prefill.pass", rid=rows, tag="resumed"):
+        with tr.span("prefill.pass", rid=rows, tag=tag):
             with tr.span("prefill.dispatch"):
-                w = self._width(len(group))
-                suffixes = np.stack(
-                    [np.asarray(tokens[start:], np.int32) for _, tokens, _, _ in group]
-                    + [np.asarray(group[0][1][start:], np.int32)] * (w - len(group)))
-                donors = [d for *_, d in group] + [group[0][3]] * (w - len(group))
-                stacked = donors[0] if w == 1 else {
-                    n: torch.cat([d[n] for d in donors], dim=1) for n in donors[0]}
+                run, padded = inputs(self._width(len(group)))
                 t0 = time.perf_counter()
                 with tr.layers():
-                    logits, caches = self.model.prefill_resume(
-                        self.params, stacked, self._tokens(suffixes), start)
+                    logits, caches = run()
             with tr.span("prefill.wait"):
                 logits = logits.cpu().numpy()
             wall = time.perf_counter() - t0
-        st = self.stats
-        st.batches += 1
-        st.wall_s += wall
-        if len(group) > 1:
-            st.batched_requests += len(group)
-        st.padded_tokens += (w - len(group)) * suffixes.shape[1]
+        self._count_pass(wall, len(group), padded)
         with tr.span("prefill.store"):
-            for r, (i, tokens, hashes, _) in enumerate(group):
-                st.requests += 1
-                st.total_blocks += len(hashes)
-                st.reused_blocks += start // self.block_size
-                st.total_tokens += len(tokens)
-                st.computed_tokens += len(tokens) - start
-                st.flops += self._flops_per_token * (len(tokens) - start)
+            for r, (i, tokens, hashes, *_) in enumerate(group):
+                self._count_row(tokens, hashes, start)
                 results[i] = (logits[r], caches, r)
-                if hashes:
-                    self._store(hashes, _row(caches, r))
+                self._store(hashes, caches, r)
 
 
 @dataclass
@@ -425,21 +432,14 @@ class Slot:
 
 
 PAGED_IMPLS = ("paged", "paged_sdpa")
-# the mixers a replayed step may hold (None: an MLP-only layer)
-GRAPHED_MIXERS = {"attn", "mamba", None}
 
 
 def graphs_decode(model: Model, params, device: torch.device) -> bool:
     """Whether a decode engine replays its step as a CUDA graph: on a card,
-    with plain (unsharded) parameters, for a stack of attention and Mamba
-    mixers and MLPs (a Mamba layer writes its state into the cache in
-    place, so the graph finds it by address) without MoE layers, cross
-    attention or a frontend.  Every other engine queues each step
-    eagerly."""
-    return (device.type == "cuda" and model.cfg.moe is None
-            and set(model.mixers) <= GRAPHED_MIXERS
-            and not any(d.cross for d in model.layer_descs)
-            and model.cfg.family not in ("encdec", "vlm")
+    for a model whose step a graph can replay
+    (:attr:`Model.supports_graph_decode`), with plain (unsharded)
+    parameters.  Every other engine queues each step eagerly."""
+    return (device.type == "cuda" and model.supports_graph_decode
             and not any(isinstance(p, DTensor) for p in leaves(params)))
 
 
@@ -469,16 +469,17 @@ def recorded_launches(counters, fn):
 
 
 class StepGraph:
-    """A decode engine's recorded pass at one page-table width (0: a dense
-    engine's).
+    """A decode engine's step inputs at one page-table width (0: a dense
+    engine's), and its pass recorded at that width on a graphed engine.
 
     ``inputs`` packs the step's int32 tokens (B), lengths (B) and page
     table (B, W) on the device, so one non-blocking copy from the pinned
     ``host`` buffer stages them; ``tokens``, ``lengths`` and ``table`` are
-    its views, which the graph reads.  The caches and weights are read and
-    written in place, by address.  ``out`` is the graph's argmax (B,);
-    ``launches`` the kernel launches it recorded, which every replay adds
-    to the wrappers' counters."""
+    its views, which the pass reads.  The caches and weights are read and
+    written in place, by address.  ``graph`` is None until the pass is
+    recorded; then ``out`` is the graph's argmax (B,) and ``launches`` the
+    kernel launches it recorded, which every replay adds to the wrappers'
+    counters."""
 
     def __init__(self, num_slots: int, width: int, device: torch.device):
         b = num_slots
@@ -496,9 +497,10 @@ class StepGraph:
     def stage(self, tokens: np.ndarray, lengths: np.ndarray,
               table: Optional[np.ndarray]) -> None:
         """Copy one step's inputs to the device (``table`` None on a dense
-        engine).  The host buffer is written again only by the next step,
-        after this one's argmax has reached the host, so the copy has
-        ended."""
+        engine).  The host buffer is written again only by the next pass
+        at this width, after this one's argmax has reached the host (a
+        step) or the device has been waited for (a warm-up), so the copy
+        has ended."""
         h = self.host.numpy()
         b = len(lengths)
         h[:b] = tokens[:, 0]
@@ -526,14 +528,15 @@ class DecodeEngine:
     crosses a block boundary, and returns the pages on release.
     ``num_pages=None`` sizes the pool to the dense worst case.
 
-    Where :func:`graphs_decode` holds, each step replays the pass recorded
-    at the live table's width (:class:`StepGraph`; a dense engine has one):
-    :meth:`warmup` records the widths it runs, and a step at a width not
-    recorded yet runs eagerly and records it.  ``graph_replays``,
-    ``graph_captures`` and ``eager_steps`` count what the steps did (a
-    step counts as a replay or as eager; each recording counts as a
-    capture).  The graphs share one memory pool per engine and replay on
-    the current stream, as eager launches run."""
+    Each pass stages its inputs in the :class:`StepGraph` of the table's
+    width (a dense engine has one) and runs in :meth:`_run`.  Where
+    ``graphed`` (:func:`graphs_decode`) holds, a step replays the pass
+    recorded at the live table's width: :meth:`warmup` records the widths
+    it runs, and a step at a width not recorded yet runs eagerly and
+    records it.  ``graph_replays``, ``graph_captures`` and ``eager_steps``
+    count what the steps did (a step counts as a replay or as eager; each
+    recording counts as a capture).  The graphs share one memory pool per
+    engine and replay on the current stream, as eager launches run."""
 
     def __init__(self, model: Model, params, num_slots: int, max_len: int,
                  worker_id: int = 0, resident_blocks: int = 4096,
@@ -586,7 +589,7 @@ class DecodeEngine:
         self._state = {n: t for n, t in self.caches.items()
                        if n in model.state_leaves}
         self.graphed = graphs_decode(model, params, self.device)
-        self._graphs: Dict[int, StepGraph] = {}    # table width -> graph
+        self._graphs: Dict[int, StepGraph] = {}    # table width -> inputs
         self._graph_pool = None          # the graphs' memory pool
         self._capture_stream = None
         self.graph_replays = 0           # steps that replayed a graph
@@ -761,27 +764,18 @@ class DecodeEngine:
         :meth:`width_ladder`) and once at the live table's width, which
         stays as it is.  Where the reference compiles the step per width,
         the port pays each width's first launch here; a graphed engine
-        records each width it has not recorded yet, after that pass."""
+        runs and records only the widths it has not recorded yet."""
         widths = [0]
         if self.paged:
             widths = sorted({int(w) for w in (table_widths or ())}
                             | {self.page_table.shape[1]})
         zeros = np.zeros((self.num_slots,), np.int32)
-        if self.graphed:
-            for w in widths:
-                if w not in self._graphs:
-                    table = np.zeros((self.num_slots, w), np.int32) \
-                        if self.paged else None
-                    self._record(zeros, table)
-            _synchronize(self.device)
-            return
-        lengths = torch.as_tensor(zeros, device=self.device)
-        tokens = torch.as_tensor(self.tokens, device=self.device)
         for w in widths:
-            table = torch.zeros((self.num_slots, w), dtype=torch.int32,
-                                device=self.device) if self.paged else None
-            self.model.decode(self.params, self.caches, tokens, lengths,
-                              decode_impl=self.decode_impl, page_table=table)
+            g = self._graphs.get(w)
+            if self.graphed and g is not None and g.graph is not None:
+                continue
+            self._run(zeros, np.zeros((self.num_slots, w), np.int32)
+                      if self.paged else None, step=False)
         _synchronize(self.device)
 
     # --------------------------------------------------------------- step ---
@@ -816,33 +810,37 @@ class DecodeEngine:
         return out
 
     def _queue(self) -> torch.Tensor:
-        """Queue this tick's decode pass on the device; returns its argmax
-        on the device (the caller's copy to the host waits for it).  A
-        graphed engine stages the inputs and replays the graph of the live
-        table's width, or runs the pass eagerly and records that width."""
-        if not self.graphed:
-            self.eager_steps += 1
-            return self._dispatch()
+        """Queue this tick's decode pass on the device at the live table's
+        width; returns its argmax on the device (the caller's copy to the
+        host waits for it)."""
         if self.paged:
             self._grow_pages()
-        table = self.page_table if self.paged else None
-        graph = self._graphs.get(0 if table is None else table.shape[1])
-        if graph is None:
-            self.eager_steps += 1
-            return self._record(self._lengths(), table)
-        graph.stage(self.tokens, self._lengths(), table)
-        self.graph_replays += 1
-        return graph.replay()
+        return self._run(self._lengths(),
+                         self.page_table if self.paged else None)
 
-    def _record(self, lengths: np.ndarray,
-                table: Optional[np.ndarray]) -> torch.Tensor:
-        """Record the pass at ``table``'s width (None: the dense pass) on
-        these inputs.  It runs once eagerly on the capture stream first,
-        which pays its lazy allocations (the kernels' combine counters
-        among them) outside the graphs' pool; returns that pass's argmax."""
+    def _run(self, lengths: np.ndarray, table: Optional[np.ndarray],
+             step: bool = True) -> torch.Tensor:
+        """Stage the pass's inputs at ``table``'s width (None: the dense
+        pass), then run it: eagerly, op by op, on an engine that is not
+        ``graphed``; else by replaying the graph of that width, or, where
+        none is recorded yet, by running it once on the capture stream and
+        recording it.  A ``step`` counts as a replay or as an eager step;
+        a recording counts as a capture.  Returns the pass's argmax on the
+        device."""
         width = 0 if table is None else table.shape[1]
-        graph = StepGraph(self.num_slots, width, self.device)
-        graph.stage(self.tokens, lengths, table)
+        g = self._graphs.get(width)
+        if g is None:
+            g = self._graphs[width] = StepGraph(self.num_slots, width,
+                                                self.device)
+        g.stage(self.tokens, lengths, table)
+        if self.graphed and g.graph is not None:   # a step (warm-up skips it)
+            self.graph_replays += 1
+            return g.replay()
+        if step:
+            self.eager_steps += 1
+        if not self.graphed:
+            with self.tracer.layers():
+                return self._pass(g)
         stream = None
         if self.device.type == "cuda":
             if self._graph_pool is None:
@@ -850,22 +848,28 @@ class DecodeEngine:
                 self._capture_stream = torch.cuda.Stream(self.device)
             stream = self._capture_stream
             stream.wait_stream(torch.cuda.current_stream(self.device))
-
-        def decode_pass():
-            logits, _ = self.model.decode(
-                self.params, self.caches, graph.tokens, graph.lengths,
-                decode_impl=self.decode_impl, page_table=graph.table)
-            return torch.argmax(logits, dim=-1)
+        # the pass runs once on the capture stream first, which pays its
+        # lazy allocations (the kernels' combine counters among them)
+        # outside the graphs' pool; the step takes that pass's argmax
         with torch.cuda.stream(stream):
-            out = decode_pass()
-            (graph.graph, graph.out), graph.launches = recorded_launches(
+            out = self._pass(g)
+            (g.graph, g.out), g.launches = recorded_launches(
                 DECODE_KERNELS,
-                lambda: record_graph(decode_pass, self._graph_pool, stream))
+                lambda: record_graph(lambda: self._pass(g), self._graph_pool,
+                                     stream))
         if stream is not None:
             torch.cuda.current_stream(self.device).wait_stream(stream)
-        self._graphs[width] = graph
         self.graph_captures += 1
         return out
+
+    def _pass(self, g: StepGraph) -> torch.Tensor:
+        """The decode pass on ``g``'s inputs, updating the caches in place;
+        its argmax on the device (torch.argmax returns the first maximal
+        index, as np.argmax does)."""
+        logits, _ = self.model.decode(
+            self.params, self.caches, g.tokens, g.lengths,
+            decode_impl=self.decode_impl, page_table=g.table)
+        return torch.argmax(logits, dim=-1)
 
     def _lengths(self) -> np.ndarray:
         # reserved-but-unadmitted slots decode as length-0 rows and their
@@ -885,22 +889,6 @@ class DecodeEngine:
                 page = self.allocator.grow(i)
                 self._widen_table(self._table_width(j + 1))
                 self.page_table[i, j] = page
-
-    def _dispatch(self) -> torch.Tensor:
-        """Queue one decode pass eagerly, op by op; returns its argmax on
-        the device."""
-        lengths = torch.as_tensor(self._lengths(), device=self.device)
-        tokens = torch.as_tensor(self.tokens, device=self.device)
-        table = None
-        if self.paged:
-            self._grow_pages()
-            table = torch.as_tensor(self.page_table, device=self.device)
-        with self.tracer.layers():
-            logits, self.caches = self.model.decode(
-                self.params, self.caches, tokens, lengths,
-                decode_impl=self.decode_impl, page_table=table)
-        # torch.argmax returns the first maximal index, as np.argmax does
-        return torch.argmax(logits, dim=-1)
 
 
 def kv_token_bytes(model: Model) -> int:

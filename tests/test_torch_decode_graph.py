@@ -70,21 +70,25 @@ def phi():
 CUDA = torch.device("cuda")      # a stand-in: the rule reads the type only
 
 
-@pytest.mark.parametrize("arch,device,graphed", [
-    ("phi4-mini-3.8b", torch.device("cpu"), False),
-    ("jamba-v0.1-52b", CUDA, False),          # recurrent mixers
-    ("xlstm-125m", CUDA, False),              # recurrent mixers
-    ("seamless-m4t-medium", CUDA, False),     # encoder-decoder
-    ("phi-3-vision-4.2b", CUDA, False),       # VLM
-    ("qwen3-moe-30b-a3b", CUDA, False),       # MoE layers
-    ("minitron-4b", CUDA, True),              # attention only, on a card
-    ("phi4-mini-3.8b", CUDA, True),
-    (NEMOTRON_H, CUDA, True),                 # Mamba, attention, MLP, no MoE
-    (NEMOTRON_H, torch.device("cpu"), False),
+@pytest.mark.parametrize("arch,device,graphed,capturable", [
+    ("phi4-mini-3.8b", torch.device("cpu"), False, True),
+    ("jamba-v0.1-52b", CUDA, False, False),       # MoE layers
+    ("xlstm-125m", CUDA, False, False),           # recurrent mixers
+    ("seamless-m4t-medium", CUDA, False, False),  # encoder-decoder
+    ("phi-3-vision-4.2b", CUDA, False, False),    # VLM
+    ("qwen3-moe-30b-a3b", CUDA, False, False),    # MoE layers
+    ("minitron-4b", CUDA, True, True),            # attention only, on a card
+    ("phi4-mini-3.8b", CUDA, True, True),
+    (NEMOTRON_H, CUDA, True, True),               # Mamba, attention, MLP
+    (NEMOTRON_H, torch.device("cpu"), False, True),
 ])
-def test_rule_graphs_attention_only_stacks_on_a_card(arch, device, graphed):
+def test_rule_graphs_attention_only_stacks_on_a_card(arch, device, graphed,
+                                                     capturable):
+    """The engine's rule (a card, plain parameters) over the model's own
+    gate, ``Model.supports_graph_decode``, which reads no device."""
     model = Model(_config(arch))
     params = {"embed": torch.zeros(2), "layers": [{"w": torch.zeros(2)}]}
+    assert model.supports_graph_decode is capturable
     assert E.graphs_decode(model, params, device) is graphed
 
 
@@ -381,9 +385,8 @@ def test_card_hybrid_replayed_logits_equal_eager_bit_for_bit(hybrid_card):
 
 def _replayed_logits_equal_eager(model, params, impl):
     (dec,) = _card_engines(model, params, impl, 1, warm=False)
-    b = dec.num_slots
     if dec.paged:
-        for i in range(b):          # map every page the steps will reach
+        for i in range(dec.num_slots):   # map every page the steps reach
             while len(dec.allocator.owned[i]) < dec.allocator.pages_for(
                     dec.slots[i].length + CARD_STEPS + 1):
                 dec.allocator.grow(i)
@@ -391,27 +394,31 @@ def _replayed_logits_equal_eager(model, params, impl):
             dec._widen_table(dec._table_width(len(pages)))
             dec.page_table[i, :len(pages)] = pages
     table = dec.page_table if dec.paged else None
-    g = E.StepGraph(b, 0 if table is None else table.shape[1], dec.device)
     lengths = dec._lengths()
-    g.stage(dec.tokens, lengths, table)
+    # the engine's own recording: the pass once on the capture stream,
+    # then its capture, which writes nothing; the capture's logits are a
+    # static tensor that every replay rewrites
+    seen = []
 
-    def decode_pass():
-        return model.decode(params, dec.caches, g.tokens, g.lengths,
-                            decode_impl=impl, page_table=g.table)[0]
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        decode_pass()                               # the capture's warm-up
-    torch.cuda.current_stream().wait_stream(side)
-    # the copy after the warm-up, which has advanced a recurrent state
-    # (K/V it wrote again at the same positions)
+    def decode(*args, **kw):
+        logits, caches = inner(*args, **kw)
+        seen.append(logits)
+        return logits, caches
+    inner, model.decode = model.decode, decode
+    try:
+        dec._run(lengths, table)
+    finally:
+        del model.decode
+    assert dec.graph_captures == 1 and dec.eager_steps == 1
+    (g,) = dec._graphs.values()
+    logits = seen[-1]
+    # the copy after that pass, which has advanced a recurrent state (K/V
+    # it wrote again at the same positions)
     eager_caches = {n: t.clone() for n, t in dec.caches.items()}
-    graph, logits = E.record_graph(decode_pass, torch.cuda.graph_pool_handle(),
-                                   side)
     tokens = dec.tokens.copy()
     for step in range(CARD_STEPS):
         g.stage(tokens, lengths, table)
-        graph.replay()
+        g.graph.replay()
         want, _ = model.decode(
             params, eager_caches,
             torch.as_tensor(tokens, device="cuda"),
@@ -419,6 +426,7 @@ def _replayed_logits_equal_eager(model, params, impl):
             page_table=None if table is None
             else torch.as_tensor(table, device="cuda"))
         assert torch.equal(logits, want), f"step {step}"
+        assert torch.equal(g.out, torch.argmax(want, dim=-1)), f"step {step}"
         tokens = want.argmax(-1).to(torch.int32).cpu().numpy()[:, None]
         lengths = lengths + 1
     for n, t in eager_caches.items():
@@ -429,8 +437,8 @@ def _replayed_logits_equal_eager(model, params, impl):
 @pytest.mark.parametrize("impl", ["pallas", "paged"])
 def test_card_replay_and_eager_steps_serve_the_same_tokens(phi_card, impl):
     """Three engines on the same requests: one eager throughout (its
-    ``_dispatch``), one replaying throughout after ``warmup``, one that
-    switches every few steps (a combine counter left non-zero by either
+    ``graphed`` set False), one replaying throughout after ``warmup``, one
+    that switches every few steps (a combine counter left non-zero by either
     would change the next step).  The tokens agree at every step, and K1
     or K2 counts layers x steps launches for each engine's steps."""
     _replay_and_eager_serve_the_same(*phi_card, impl)
@@ -446,8 +454,8 @@ def test_card_hybrid_replay_and_eager_serve_the_same_tokens(hybrid_card):
 
 def _replay_and_eager_serve_the_same(model, params, impl):
     eager, graphed, mixed = _card_engines(model, params, impl, 3)
-    assert graphed.graphed and mixed.graphed
-    eager._queue = eager._dispatch
+    assert eager.graphed and graphed.graphed and mixed.graphed
+    eager.graphed = False
     # launches a step: one a layer of the kernel's kind
     layers = {KERNEL[impl]: model.mixers.count("attn"),
               ssd_step: model.mixers.count("mamba")}
@@ -455,8 +463,7 @@ def _replay_and_eager_serve_the_same(model, params, impl):
     assert all(g.launches == recorded for g in graphed._graphs.values())
     for step in range(CARD_STEPS):
         # switch mixed between eager and replayed steps: 3 of each in turn
-        mixed._queue = mixed._dispatch if step // 3 % 2 else \
-            types.MethodType(E.DecodeEngine._queue, mixed)
+        mixed.graphed = step // 3 % 2 == 0
         outs = []
         for dec in (eager, graphed, mixed):
             before = {k: k.launches for k in layers}
@@ -478,7 +485,7 @@ def test_card_profiler_sees_every_replayed_kernel(phi_card, impl):
     replayed, are printed."""
     model, params = phi_card
     eager, graphed = _card_engines(model, params, impl, 2)
-    eager._queue = eager._dispatch
+    eager.graphed = False
     name = {"pallas": "dense_split_kernel", "paged": "paged_split_kernel"}
     steps = 10
     acts = [torch.profiler.ProfilerActivity.CPU,

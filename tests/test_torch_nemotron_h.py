@@ -342,3 +342,38 @@ def test_warmup_batches_one_row_where_prompts_are_not_padded(monkeypatch):
         pre.warmup([12, 20], batch_sizes=[1, 2, 4])
     assert widths["hybrid"] == [(1, 12), (1, 20)]
     assert sorted({w for w, _ in widths["dense"]}) == [1, 2, 4]
+
+
+@pytest.mark.parametrize("name", ["hybrid", "dense"])
+def test_prompt_rows_are_cut_only_to_be_stored(monkeypatch, name):
+    """A batched prompt pass cuts a row out of its caches only for the
+    prefix cache to keep it: never on a model whose prompt passes do not
+    resume (Nemotron-H's ~185 MB rows at the benchmark's size), one per
+    cold and per resumed row on a dense model."""
+    from repro_torch.core.radix import BLOCK_SIZE, block_hashes
+    cfg = NH.reduced() if name == "hybrid" else get_reduced("phi4-mini-3.8b")
+    model = M.Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), torch.bfloat16,
+                        "cpu")
+    pre = E.PrefillEngine(model, params, max_len=64, cache_entries=16,
+                          device="cpu")
+    cut = []
+    real = E._row
+
+    def row(caches, r):
+        cut.append(r)
+        return real(caches, r)
+    monkeypatch.setattr(E, "_row", row)
+    a = [(7 * i + 3) % cfg.vocab_size for i in range(40)]
+    b = a[:2 * BLOCK_SIZE] + [(5 * i + 1) % cfg.vocab_size
+                              for i in range(BLOCK_SIZE)]
+    c = [(11 * i + 2) % cfg.vocab_size for i in range(40)]
+    pre.prefill_many([(t, None, block_hashes(t, BLOCK_SIZE)) for t in (a, c)])
+    pre.prefill_many([(b, None, block_hashes(b, BLOCK_SIZE))])
+    if name == "hybrid":
+        assert cut == [] and len(pre._cache) == 0
+        assert pre.stats.reused_blocks == 0
+    else:
+        assert cut == [0, 1, 0] and len(pre._cache) == 3
+        assert pre.stats.reused_blocks == 2
+    assert pre.stats.requests == 3 and pre.stats.batches == 2
