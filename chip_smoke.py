@@ -17,18 +17,24 @@ Phases, each of which fails the run (exit code 1) if it fails:
 3. Serve 12 requests through ``DisaggregatedCluster`` on full-width
    Phi-4-mini 3.8B (random weights from a seed), once with the dense decode
    kernel (``decode_impl="pallas"``) and once with the paged one
-   (``"paged"``), counting each kernel's launches.
+   (``"paged"``), counting each kernel's launches: the decode kernel once
+   per layer and decode step, K3 once per attention layer and prompt pass
+   of more than one query (each attends over its live keys on K3; none
+   takes the plain path), and no other kernel.
 4. A 16-step forced decode walk on the full model: kernel path against
    plain path, within 0.02 x the logit spread (in an MoE model the kernel
    path takes the plain path's expert ids; see ``phase_walk``).
-5. The flash-attention kernel of the teacher-forced loss against its plain
-   version over fp32/bf16, G 1..8, hd 32/64/96/128, causal or not and
+5. The flash-attention kernel of the teacher-forced loss and the prompt
+   pass against its plain version over fp32/bf16, G 1..8, hd 32/64/96/128, causal or not and
    ragged S <= T (with S*G off the kernel's 128-row blocks and S = 1 over
    an offset cache); then its fp32 body at the edges of its tasks (S*G one
    short of, at and one past its 64-row blocks, key ranges one short of,
    at and one past a chunk and two, S = 1 over T - S = 37), each launched
    twice and bit-equal, and one chunk against many on the same inputs;
-   then at the loss's shape (B=2, S=T=2048, H=24, K=8, hd=128), bf16 and
+   then at the prompt passes' shapes (``PROMPT_FLASH_SHAPES``: resumed
+   passes of 512 and 1,041 rows over 2.5k keys, a cold ragged pass of
+   width 8, Nemotron-H's cold pass at G = 8 over 2,573 keys), each error
+   printed; then at the loss's shape (B=2, S=T=2048, H=24, K=8, hd=128), bf16 and
    fp32 each timed beside ``scaled_dot_product_attention``.
 6. ``Model.train_loss`` on the full model at B=2, S=2048 with
    ``use_flash=True`` (32 flash launches, no decode kernel; its fp32 flash
@@ -46,19 +52,22 @@ Phases, each of which fails the run (exit code 1) if it fails:
    paged kernel under the coherence sanitizer (decisions equal again,
    every page pool whole), and a sanitized flood of
    ``hetero-decode-mixed`` (24 requests of 128 prompt tokens and 32 new
-   ones, not serialized) on the paged kernel.
+   ones, not serialized) on the paged kernel; each run launches its decode
+   kernel, K3 once per layer and prompt pass, and no other kernel.
 9. The MoE slice, after every earlier tensor is freed: K1 and K2
    held and timed as in phase 2 at Qwen3-30B-A3B's attention shape (G =
    8, hd = 64, K = 4), then full-width ``qwen3-moe-30b-a3b`` (48 layers,
    128 experts top-8, ~30.1 B params, bf16 drawn on the card) served as in
-   phase 3 (48 kernel launches a decode step) and walked as in phase 4.
+   phase 3 (48 kernel launches a decode step, 48 K3 launches a prompt
+   pass) and walked as in phase 4.
 10. The SSM and hybrid slice, last, after phase 9's params are freed: K1
    held and timed at Jamba's attention shape (G = 4, hd = 128, K = 8; K2
    is not on this path), then ``jamba-v0.1-52b`` at full width and 16 of
    its 32 layers (7 Mamba and 1 attention layer a period, MoE on every
    second layer, ~26.0 B params) and ``xlstm-125m`` at full size, each
    serving phase 3's requests on the dense decode kernel (K1 launched once
-   per attention layer and decode step: 2 on Jamba, none on xLSTM), with
+   per attention layer and decode step, K3 once per attention layer and
+   prompt pass: 2 on Jamba, none on xLSTM), with
    no prefix resumed, no prompt right-padded and a paged decoder refused,
    then walked as in phase 4 (``"pallas"`` against ``"sdpa"``).
 11. The encoder-decoder and VLM slice, last, after phase 10's params are
@@ -69,7 +78,8 @@ Phases, each of which fails the run (exit code 1) if it fails:
    ``seamless-m4t-medium`` (12 encoder and 12 decoder layers, ~0.9 B) at
    full size, each serving 12 requests with ``extras`` (576 x 1024 patches,
    or 1024-2048 x 160 frames) on the dense decode kernel (K1 launched once
-   per self-attention layer and decode step; every prompt its own pass, no
+   per self-attention layer and decode step, K3 once per self-attention
+   layer and prompt pass; every prompt its own pass, no
    prefix resumed or stored; the cached cross attention plain) and walked
    as in phase 4 from a prefill with those inputs; and the VLM's loss at
    S = 2048 (576 patches) with K3 (32 launches) and without.
@@ -79,18 +89,20 @@ Phases, each of which fails the run (exit code 1) if it fails:
    allowlist, and over each bad fixture (staged under a path its rule
    scopes) with ``--select`` its code must exit 1 with at least
    LINT_MIN_BAD findings; one line ``{"lint": {...}}``.  Then one prompt
-   pass of 1,041 tokens at the default query block (1,024) and with
-   ``runtime_flags.Q_CHUNK_OVERRIDE`` at 256 and 2048, in bf16 (timed,
-   distances printed) and with fp32 compute (last logits within 2e-3 of
-   the default's); the flags are restored.
+   pass of 1,041 tokens with fp32 compute (the plain path, which the flag
+   blocks; a bf16 pass attends on K3, which it does not reach) at the
+   default query block (1,024) and with
+   ``runtime_flags.Q_CHUNK_OVERRIDE`` at 256 and 2048: timed, last logits
+   within 2e-3 of the default's; the flags are restored.
 13. The sharding layer (run after phase 12, on phase 3's model): a
    one-rank NCCL world from a ``FileStore`` in a temporary directory, a
    (1, 1) ("data", "model") mesh from ``make_test_mesh``, and the params
    distributed by ``param_shardings``.  Phase 4's forced walk (624-token
    prompt, 16 steps, ``"pallas"``) runs under ``use_policy`` on the
    DTensor params and without it on the plain ones, fed the same tokens:
-   max|dlogits| within WALK_BOUND x spread, and K1 launched on local
-   shards exactly once per attention layer and step (32 x 16 = 512).
+   max|dlogits| within WALK_BOUND x spread, K1 launched on local shards
+   exactly once per attention layer and step (32 x 16 = 512), and K3 once
+   per attention layer in the prompt pass, on local shards too (32).
    ``compressed_psum`` over the NCCL group on two layers' fp32 gradients
    must equal ``compress_grads`` bit for bit.  The prompt pass is timed
    with and without the policy (DTensor's host cost); the process group
@@ -120,9 +132,10 @@ Phases, each of which fails the run (exit code 1) if it fails:
    ratios and a flood, occupancy) with every kernel count set to 0 just
    before: K1 and K2 launched once per layer and ``"pallas"`` / ``"paged"``
    decode pass the card ran (each eager pass and each replay of a
-   recorded decode graph; a capture runs none), K3 never (its fp32
-   launches, counted apart, are the ``flash_attention_bench_fp32``
-   record's), no decode window short of a
+   recorded decode graph; a capture runs none), K3 once per layer and
+   prompt pass (its fp32 launches, counted apart, are the
+   ``flash_attention_bench_fp32`` record's; the rows launch none), no
+   decode window short of a
    live slot, and the
    24-page pool admitting PAGED_ADMITTED requests, at least
    MIN_PAGED_CAPACITY x the dense slots.  The timing gates are printed
@@ -135,6 +148,7 @@ printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -529,8 +543,37 @@ def phase_flash(torch, F):
           f"{fops.HEAD_DIMS}, causal and not, T - S in (0, 37); S*G off "
           f"the 128-row blocks for G 3/5/6/7; S = 1 with T - S = 37)")
     hold_f32_split(torch, fops, gen)
+    hold_prompt_flash(torch, fops, gen)
     return time_flash(torch, F, gen, LOSS_B, LOSS_S, 24, 8, 128,
                       timed=(torch.bfloat16, torch.float32))
+
+
+# the prompt passes' shapes (B, S, T, H, K, hd), causal with the diagonal
+# shifted by T - S: a resumed pass of width 4 and ragged length over its
+# donor's keys, a resumed chat turn, a cold ragged pass of width 8, and
+# Nemotron-H's cold pass (G = 8)
+PROMPT_FLASH_SHAPES = ((4, 1041, 2577, 24, 8, 128),
+                       (1, 512, 2560, 24, 8, 128),
+                       (8, 1541, 1541, 24, 8, 128),
+                       (1, 2573, 2573, 64, 8, 128))
+
+
+def hold_prompt_flash(torch, fops, gen):
+    """K3 against its plain version, in bf16 (the prompt pass's) and fp32,
+    at PROMPT_FLASH_SHAPES: long offsets T - S and many key tiles past
+    them, row counts off the 128-row blocks."""
+    for b, s, t, h, kh, hd in PROMPT_FLASH_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = flash_inputs(torch, gen, b, s, t, h, kh, hd, dtype)
+            err = max_err(torch, fops.flash_attention(*args, causal=True),
+                          fops.flash_attention_plain(*args, causal=True),
+                          dtype)
+            print(f"K3 flash_attention prompt shape B={b} S={s} T={t} "
+                  f"H={h} K={kh} hd={hd} {str(dtype)[6:]}: max err "
+                  f"{err:.3g}")
+            del args
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def hold_f32_split(torch, fops, gen):
@@ -764,12 +807,51 @@ def template_prompt(template: int, n: int, vocab: int):
     return [(template * 1_000_003 + 7 * i) % vocab for i in range(n)]
 
 
+@contextlib.contextmanager
+def prompt_passes(model):
+    """While open, the model's prompt passes of more than one query (its
+    ``_run_stack`` calls with a cache and S > 1: every prompt pass goes
+    through it, a decode step has S = 1, the loss has no cache) counted
+    under ``"passes"`` of the yielded dict (a one-token pass, a resume
+    whose whole prompt but its last token was cached, attends as a decode
+    step does) and, on leaving, the prompt attention calls that took the
+    plain path on the card under ``"plain"``."""
+    from repro_torch.models import layers
+
+    run_stack, seen = model._run_stack, {"passes": 0}
+
+    def counted(params, x, caches, **kw):
+        seen["passes"] += caches is not None and x.shape[1] > 1
+        return run_stack(params, x, caches, **kw)
+    model._run_stack = counted
+    plain = layers.attention.plain_prompt_calls
+    try:
+        yield seen
+    finally:
+        seen["plain"] = layers.attention.plain_prompt_calls - plain
+        del model._run_stack
+
+
+def check_prompt_kernel(label, model, launches, seen):
+    """K3 launched once per attention layer and prompt pass of more than
+    one query (the pass attends over its live keys on the card), and no
+    such prompt attention on the plain path."""
+    want = model.mixers.count("attn") * seen["passes"]
+    check(seen["passes"] > 0 and launches["flash_attention"] == want,
+          f"{label}: {launches['flash_attention']} K3 launches for "
+          f"{seen['passes']} prompt passes of {model.mixers.count('attn')} "
+          f"attention layers")
+    check(seen["plain"] == 0, f"{label}: {seen['plain']} prompt attention "
+          f"calls took the plain path")
+
+
 def serve(torch, model, params, cfg, decode_impl, requests, counters,
           max_len=MAX_LEN):
     """``requests`` — (id, tokens, max new tokens[, extras]) — through a
     cluster of 2 decoders x SLOTS slots, every kernel count set to 0 just
-    before the run; returns (cluster, done, wall seconds, decode steps
-    that ran the model, each kernel's launches)."""
+    before the run, K3's held to its prompt passes
+    (:func:`check_prompt_kernel`); returns (cluster, done, wall seconds,
+    decode steps that ran the model, each kernel's launches)."""
     from repro_torch.serving.disagg import DisaggregatedCluster, ServeRequest
 
     cluster = DisaggregatedCluster(
@@ -792,11 +874,13 @@ def serve(torch, model, params, cfg, decode_impl, requests, counters,
     torch.cuda.reset_peak_memory_stats()
     for fn in counters:
         fn.launches = 0
-    t0 = time.perf_counter()
-    done = cluster.run_until_done()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with prompt_passes(model) as seen:
+        t0 = time.perf_counter()
+        done = cluster.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
+    check_prompt_kernel(f"{cfg.name} {decode_impl}", model, launches, seen)
     return cluster, done, wall, steps[0], launches
 
 
@@ -834,7 +918,8 @@ def phase_slice(torch, model, params, cfg, counters):
         check(steps > 0 and launches[kernel] == cfg.num_layers * steps,
               f"{impl}: {launches[kernel]} launches of {kernel} for {steps} "
               f"decode steps of {cfg.num_layers} layers")
-        other = sum(v for k, v in launches.items() if k != kernel)
+        other = sum(v for k, v in launches.items()
+                    if k not in (kernel, "flash_attention"))
         check(other == 0, f"{impl}: other kernels launched: {launches}")
         st = cluster.prefill.stats
         check(st.reused_blocks > 0, f"{impl}: no prefix-cache resume ran")
@@ -854,6 +939,7 @@ def phase_slice(torch, model, params, cfg, counters):
         print(f"slice {cfg.name} {impl}: 12 requests, {steps} decode "
               f"steps ({replays} replayed, {captures} graphs recorded), "
               f"{launches[kernel]} {kernel} launches, "
+              f"{launches['flash_attention']} K3 launches, "
               f"resumed blocks {st.reused_blocks}/{st.total_blocks}, "
               f"TTFT p50 {p50 * 1e3:.1f} ms p99 {p99 * 1e3:.1f} ms, "
               f"decode {gen_tokens / wall:.1f} tokens/s over {wall:.2f} s, "
@@ -886,20 +972,25 @@ def engine_record(res):
             res.final_regime)
 
 
-def run_counted(torch, runner, counters):
+def run_counted(torch, runner, counters, label):
     """The runner's warm-up, then ``runner.run()`` with every kernel count
-    set to 0 just before and read just after; returns (result, launches,
-    wall seconds of the run alone)."""
+    set to 0 just before and read just after, K3's held to the run's
+    prompt passes (:func:`check_prompt_kernel`); returns (result,
+    launches, wall seconds of the run alone)."""
     runner._warmup()
     runner.warmup_enabled = False
     torch.cuda.synchronize()
     for fn in counters:
         fn.launches = 0
-    t0 = time.perf_counter()
-    res = runner.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return res, {fn.__name__: fn.launches for fn in counters}, wall
+    model = runner.cluster.prefill.model
+    with prompt_passes(model) as seen:
+        t0 = time.perf_counter()
+        res = runner.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    check_prompt_kernel(label, model, launches, seen)
+    return res, launches, wall
 
 
 def check_pools(runner, label):
@@ -923,7 +1014,7 @@ def phase_scenarios(torch, model, params, counters):
                                sanitize=sanitize)
         check((runner.cluster.sanitizer is not None) == sanitize,
               f"{name}: sanitizer attached {runner.cluster.sanitizer}")
-        res, launches, wall = run_counted(torch, runner, counters)
+        res, launches, wall = run_counted(torch, runner, counters, name)
         got = engine_record(res)
         decisions, want_decisions = got[0], want[0]
         agree = sum(a == b for a, b in zip(decisions, want_decisions)) / max(
@@ -943,7 +1034,8 @@ def phase_scenarios(torch, model, params, counters):
             check(a == b, f"{name} {impl}: {label} differ from the analytic "
                   f"backend: {a} != {b}")
         check(launches[kernel] > 0, f"{name}: no {kernel} launch")
-        check(sum(launches.values()) == launches[kernel],
+        check(sum(launches.values())
+              == launches[kernel] + launches["flash_attention"],
               f"{name}: other kernels launched: {launches}")
         if impl == "paged":
             check_pools(runner, name)
@@ -970,14 +1062,14 @@ def phase_scenarios(torch, model, params, counters):
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
-    res, launches, wall = run_counted(torch, runner, counters)
+    res, launches, wall = run_counted(torch, runner, counters, "flood")
     check(len(res.requests) == 24, f"flood: {len(res.requests)} of 24 done")
     check(all(len(r.output) == 33 for r in res.requests),
           f"flood: output lengths {[len(r.output) for r in res.requests]}")
     check(all(len(s.tokens) == 128 for s in runner.specs),
           "flood: prompts are not 128 tokens")
-    check(launches["paged_attention"] > 0 and
-          sum(launches.values()) == launches["paged_attention"],
+    check(launches["paged_attention"] > 0 and sum(launches.values())
+          == launches["paged_attention"] + launches["flash_attention"],
           f"flood: launches {launches}")
     check_pools(runner, "flood")
     occ = runner.cluster.occupancy
@@ -1199,7 +1291,8 @@ def serve_gated(torch, model, params, cfg, counters, requests, warm,
     model whose engine gates are off (recurrent mixers, an
     encoder-decoder, a VLM), after the ``warm`` ones: every request done
     with 33 tokens; K1 launched once per self-attention layer and decode
-    step, ``ssd_step`` once per Mamba layer and decode step, and no other
+    step, ``ssd_step`` once per Mamba layer and decode step, K3 once per
+    self-attention layer and prompt pass (:func:`serve`), and no other
     kernel; no prefix resumed or stored; every cold
     bucket one exact length (no right-padding), and every request with
     ``extras`` its own single-request prompt pass; a cross layer's
@@ -1242,7 +1335,8 @@ def serve_gated(torch, model, params, cfg, counters, requests, warm,
     check(steps > 0 and launches["decode_attention"] == n_attn * steps,
           f"{cfg.name}: {launches['decode_attention']} K1 launches for "
           f"{steps} decode steps of {n_attn} attention layers")
-    check(sum(launches.values()) == launches["decode_attention"] + k4,
+    check(sum(launches.values()) == launches["decode_attention"] + k4
+          + launches["flash_attention"],
           f"{cfg.name}: other kernels launched: {launches}")
     st = cluster.prefill.stats
     check(st.reused_blocks == 0, f"{cfg.name}: a prefix was resumed")
@@ -1273,7 +1367,8 @@ def serve_gated(torch, model, params, cfg, counters, requests, warm,
     print(f"slice {cfg.name} pallas: 12 requests, {steps} decode steps, "
           f"{launches['decode_attention']} decode_attention launches "
           f"({n_attn} attention layers), {k4} ssd_step launches ({n_mamba} "
-          f"Mamba layers), no other kernel, resumed blocks "
+          f"Mamba layers), {launches['flash_attention']} K3 launches, no "
+          f"other kernel, resumed blocks "
           f"{st.reused_blocks}/{st.total_blocks}, {len(buckets)} exact-length "
           f"prompt passes, {len(passes)} single-request passes with extras, "
           f"{cross[0]} plain cached cross attentions, paged decoder refused, "
@@ -1621,16 +1716,14 @@ def phase_lint():
 
 
 def phase_q_chunk(torch, model, params, cfg, gpu):
-    """One prompt pass of QCHUNK_PROMPT tokens on the full model at the
-    default query block (Q_CHUNK = 1024) and with
-    ``runtime_flags.Q_CHUNK_OVERRIDE`` at 256 and 2048 (restored after),
-    first as served (bf16 compute): each pass's CUDA-event ms (stream
-    time, so the host's gaps between launches count), peak memory and
-    distance to the default's last logits; then with ``COMPUTE_DTYPE`` at fp32 (restored
-    after), where the passes must agree within PROMPT_TOL.  In bf16 a
-    1,041-row block runs other GEMM tilings than 1,024- or 256-row ones,
-    and 32 layers of random weights carry the last-bit differences to the
-    logits, so the bf16 distances are printed, not bounded."""
+    """One prompt pass of QCHUNK_PROMPT tokens on the full model with
+    ``COMPUTE_DTYPE`` at fp32 (restored after), at the default query block
+    (Q_CHUNK = 1024) and with ``runtime_flags.Q_CHUNK_OVERRIDE`` at 256
+    and 2048 (restored after): each pass's CUDA-event ms (stream time, so
+    the host's gaps between launches count), peak memory and distance to
+    the default's last logits, within PROMPT_TOL.  An fp32 pass attends on
+    the plain ``_sdpa_chunked``, which the flag blocks; a bf16 one attends
+    on K3, which it does not reach."""
     from repro_torch.models import layers
     from repro_torch.models import runtime_flags as flags
 
@@ -1658,52 +1751,33 @@ def phase_q_chunk(torch, model, params, cfg, gpu):
                 (peak - base) / 2**30, peak / 2**30)
 
     prev, dtype = flags.Q_CHUNK_OVERRIDE, layers.COMPUTE_DTYPE
-    runs = {}
+    plain = layers.attention.plain_prompt_calls
     try:
-        for compute in (torch.bfloat16, torch.float32):
-            layers.COMPUTE_DTYPE = compute
-            for chunk in QCHUNK_OVERRIDES:
-                runs[compute, chunk] = prompt_pass(chunk)
+        layers.COMPUTE_DTYPE = torch.float32
+        runs = {chunk: prompt_pass(chunk) for chunk in QCHUNK_OVERRIDES}
     finally:
         flags.Q_CHUNK_OVERRIDE, layers.COMPUTE_DTYPE = prev, dtype
     check(flags.Q_CHUNK_OVERRIDE == prev and layers.COMPUTE_DTYPE == dtype,
           "Q_CHUNK_OVERRIDE or COMPUTE_DTYPE not restored")
-    # where the bf16 distance starts: one layer's attention at this shape,
-    # one 1,041-row block against blocks of 1,024 and 17 rows
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q, k, v = (torch.randn((1, QCHUNK_PROMPT, n, hd), generator=gen,
-                           device="cuda").to(torch.bfloat16)
-               for n in (h, kh, kh))
-    pos = torch.arange(QCHUNK_PROMPT, device="cuda")[None]
-    one, two, fp32 = (layers._sdpa_chunked(*t, pos, h // kh, kind="causal",
-                                           q_chunk=c)
-                      for t, c in (((q, k, v), 2048), ((q, k, v), 1024),
-                                   ((q.float(), k.float(), v.float()), 2048)))
-    diff = (one.float() - two.float()).abs()
-    print(f"q_chunk: one layer's attention (bf16, H={h}, K={kh}, hd={hd}): "
-          f"1 block against 2 differs in {int((diff > 0).sum())} of "
-          f"{diff.numel()} outputs, by at most {float(diff.max()):.4g}; "
-          f"each is {float((one.float() - fp32).abs().max()):.4g} / "
-          f"{float((two.float() - fp32).abs().max()):.4g} from fp32")
-    for (compute, chunk), (got, ms, extra, peak) in runs.items():
-        want = runs[compute, None][0]
+    plain = layers.attention.plain_prompt_calls - plain
+    want_plain = 2 * len(QCHUNK_OVERRIDES) * model.mixers.count("attn")
+    check(plain == want_plain, f"q_chunk: {plain} plain prompt attention "
+          f"calls, expected {want_plain} (every fp32 pass's)")
+    want = runs[None][0]
+    spread = float(want.max() - want.min())
+    for chunk, (got, ms, extra, peak) in runs.items():
         block = chunk or layers.Q_CHUNK
         err = float((got - want).abs().max())
-        name = str(compute).split(".")[-1]
-        if compute == torch.float32:
-            check(bool(((got - want).abs()
-                        <= PROMPT_TOL + PROMPT_TOL * want.abs()).all()),
-                  f"q_chunk {block} ({name}): last logits differ from the "
-                  f"default's by {err:.4g} (rtol = atol = {PROMPT_TOL})")
-        spread = float(want.max() - want.min())
-        bound = (f"bound {PROMPT_TOL}" if compute == torch.float32
-                 else "not bounded")
+        check(bool(((got - want).abs()
+                    <= PROMPT_TOL + PROMPT_TOL * want.abs()).all()),
+              f"q_chunk {block} (fp32): last logits differ from the "
+              f"default's by {err:.4g} (rtol = atol = {PROMPT_TOL})")
         print(f"q_chunk {block} ({-(-QCHUNK_PROMPT // block)} query blocks; "
-              f"override {chunk}) {name}: prompt pass {QCHUNK_PROMPT} tokens "
+              f"override {chunk}) fp32: prompt pass {QCHUNK_PROMPT} tokens "
               f"{cfg.name} {ms:.2f} ms (CUDA events), peak {peak:.3f} GiB "
               f"({extra:.3f} GiB over what was held), max |logit - default| "
-              f"{err:.4g} ({err / spread:.4g} x spread; {bound}) [{gpu}]")
+              f"{err:.4g} ({err / spread:.4g} x spread; bound {PROMPT_TOL}) "
+              f"[{gpu}]")
 
 
 # ------------------------------------------------------------ phase 13 ---
@@ -1792,12 +1866,14 @@ def phase_sharded(torch, F, model, params, cfg, gpu, counters):
                 L.decode_attention = dops.decode_attention
             launches = {fn.__name__: fn.launches for fn in counters}
             k1 = launches["decode_attention"]
-            want = model.mixers.count("attn") * SHARD_STEPS
+            n_attn = model.mixers.count("attn")
+            want = n_attn * SHARD_STEPS
             check(launches == {"decode_attention": want,
-                               "paged_attention": 0, "flash_attention": 0,
-                               "ssd_step": 0},
+                               "paged_attention": 0,
+                               "flash_attention": n_attn, "ssd_step": 0},
                   f"phase 13: launches {launches} under the policy, "
-                  f"expected {want} of K1 and no other kernel")
+                  f"expected {want} of K1, {n_attn} of K3 (the prompt "
+                  f"pass) and no other kernel")
             check(all(type(a) is torch.Tensor for a in seen),
                   "phase 13: K1 took a DTensor")
             worst = ratio = 0.0
@@ -1815,7 +1891,8 @@ def phase_sharded(torch, F, model, params, cfg, gpu, counters):
                   f"{tuple(mesh.mesh.shape)} mesh policy against the plain "
                   f"params: max|dlogits| {worst:.4g} ({ratio:.4g} x spread; "
                   f"bound {WALK_BOUND}); {k1} K1 launches on local shards "
-                  f"(= {want // SHARD_STEPS} layers x {SHARD_STEPS})")
+                  f"(= {n_attn} layers x {SHARD_STEPS}), {n_attn} of K3 "
+                  f"(the prompt pass)")
             plain_ms = prompt_ms(params, contextlib.nullcontext)
             shard_ms = prompt_ms(sharded, under)
             print(f"phase 13 prompt pass {SHARD_PROMPT} tokens {cfg.name} "
@@ -1938,7 +2015,7 @@ BENCH_SUFFIX = "_bench_fp32"             # bench_kernels.py's shapes
 def phase_engine_bench(torch, model, params, cfg, gpu, counters):
     """Phase 15 (module docstring).  Returns the ``kernels`` records of
     K1-K3 at ``bench_torch_kernels``'s shapes, each with its launches in
-    the engine rows (K3 runs in none)."""
+    the engine rows (K3's in their prompt passes)."""
     import collections
 
     from benchmarks import bench_torch_engine_throughput as bench
@@ -1986,7 +2063,8 @@ def phase_engine_bench(torch, model, params, cfg, gpu, counters):
         fn.launches = 0
     flash_attention.launches_f32 = 0
     try:
-        out = bench.rows(model, params, cfg, "cuda")
+        with prompt_passes(model) as seen:
+            out = bench.rows(model, params, cfg, "cuda")
     finally:
         del model.decode
         DecodeEngine._queue = queue
@@ -2001,8 +2079,9 @@ def phase_engine_bench(torch, model, params, cfg, gpu, counters):
               f"{passes[impl]} decode passes of {layers} layers")
         print(f"phase 15 {impl}: {launches[kernel]} {kernel} launches = "
               f"{layers} layers x {passes[impl]} decode passes")
-    check(launches["flash_attention"] == 0,
-          f"the engine rows launched flash_attention: {launches}")
+    check_prompt_kernel("phase 15", model, launches, seen)
+    print(f"phase 15: {launches['flash_attention']} flash_attention launches "
+          f"= {layers} layers x {seen['passes']} prompt passes")
 
     pre, paged, occ = out["prefill"], out["paged"], out["occupancy"]
     check(paged["paged_admitted"] == PAGED_ADMITTED,

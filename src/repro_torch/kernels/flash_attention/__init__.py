@@ -1,2 +1,2 @@
-"""Causal GQA flash attention for the teacher-forced loss (replaces the
-Pallas K3)."""
+"""Causal GQA flash attention for the teacher-forced loss and the prompt
+pass (replaces the Pallas K3)."""

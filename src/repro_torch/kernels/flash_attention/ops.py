@@ -1,5 +1,6 @@
-"""Causal GQA flash attention, the forward of the teacher-forced loss: the
-CUDA kernel's wrapper and its plain PyTorch version.
+"""Causal GQA flash attention, the forward of the teacher-forced loss and
+of a prompt pass over its live keys (T >= S, the diagonal shifted by T -
+S): the CUDA kernel's wrapper and its plain PyTorch version.
 
 The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``flash_attention_pallas`` (src/repro/kernels/flash_attention/

@@ -22,6 +22,11 @@ Single-token cached decode picks its attention with ``decode_impl``:
 The no-cache causal call of the teacher-forced loss runs the CUDA flash
 kernel (``repro_torch.kernels.flash_attention``) under ``use_flash``, on the
 reference's condition (S == T and S % 128 == 0), else ``_sdpa_chunked``.
+A cached multi-token call (a prompt pass, cold or resumed) runs the same
+kernel over the live keys ``[0, write_index + S)`` alone where it can
+(:func:`_prompt_on_flash`), and ``_sdpa_chunked`` over the whole masked
+cache otherwise: the keys past ``write_index + S`` are masked there and
+add exact zeros, so the two compute the same attention.
 The encoder's bidirectional self-attention (``causal=False``) and the
 decoder's cross attention (``kv_source``, no RoPE) always take the plain
 ``_sdpa_chunked`` under a ``'full'`` or ``'length'`` mask, as in the
@@ -52,7 +57,9 @@ from repro_torch.sharding import shard
 from repro_torch.sharding.policy import mesh_sizes
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS as
+                                                     FLASH_HEAD_DIMS,
+                                                     flash_attention)
 from repro_torch.kernels.paged_attention.ops import (gather_pages,
                                                      paged_attention)
 from repro_torch.models import runtime_flags as flags
@@ -307,6 +314,27 @@ def _attend_local(fn, q, kvs, rows=(), *, kv_batch=True):
     return on_local_shards(fn, args, (0, hq), heads=kvs[0].shape[-2])
 
 
+def _flash_causal(*qkv):
+    """The flash kernel, causal, on contiguous q, K and V (a local call of
+    :func:`_attend_local`)."""
+    return flash_attention(*(t.contiguous() for t in qkv), causal=True)
+
+
+def _prompt_on_flash(q, k, ck, start, s):
+    """Whether a cached call of ``s`` > 1 queries written unclamped at
+    ``start`` runs the flash kernel over the live keys ``[0, start + s)``:
+    on a card, bf16 queries and cache, a head size the kernel is built
+    for, and no gradient wanted (the kernel has none).  The kernel shifts
+    its causal diagonal by T - S = ``start``, which is the position mask
+    of queries at ``start + i``, as every prompt pass gives them."""
+    return (q.device.type == "cuda"
+            and q.dtype == ck.dtype == torch.bfloat16
+            and q.shape[-1] in FLASH_HEAD_DIMS
+            and not (torch.is_grad_enabled()
+                     and (q.requires_grad or k.requires_grad))
+            and 0 <= start and start + s <= ck.shape[1])
+
+
 def attention(params, x, cfg, *, positions=None, kv_cache=None,
               write_index=None, kv_source=None, causal=True, kv_lengths=None,
               use_rope=True, use_flash=False, decode_impl="sdpa",
@@ -333,8 +361,10 @@ def attention(params, x, cfg, *, positions=None, kv_cache=None,
     use_rope: RoPE on q and k (never on cross attention).
     use_flash: a causal call without a cache runs the flash kernel when S
         == T and S % 128 == 0 (reference layers.py:270); it has no gradient.
-    decode_impl: see the module docstring; multi-token calls always take the
-        plain path.
+    decode_impl: see the module docstring; a multi-token call with a dense
+        cache runs the flash kernel over its live keys where
+        :func:`_prompt_on_flash` allows, else the plain path, and a paged
+        one raises.
     Returns (out, kv_cache_or_None).
     """
     b, s, _ = x.shape
@@ -392,9 +422,7 @@ def attention(params, x, cfg, *, positions=None, kv_cache=None,
         elif not causal:
             kind = "full"
         elif use_flash and s == k.shape[1] and s % 128 == 0:
-            out = _attend_local(
-                lambda *a: flash_attention(*(t.contiguous() for t in a),
-                                           causal=True), q, (k, v))
+            out = _attend_local(_flash_causal, q, (k, v))
             return _project_out(out, params), None
         else:
             kind = "causal"
@@ -441,10 +469,26 @@ def attention(params, x, cfg, *, positions=None, kv_cache=None,
             (ck, cv), (lengths,))[:, None]
         return _project_out(out, params), kv_cache
 
+    if s > 1:
+        # where the kernel runs, the write was not clamped: start is widx
+        if _prompt_on_flash(q, k, ck, int(widx), s):
+            # a cold pass's keys are this call's own, as just written
+            kv = (k, v) if start == 0 else (ck[:, :start + s],
+                                            cv[:, :start + s])
+            out = _attend_local(_flash_causal, q, kv)
+            return _project_out(out, params), kv_cache
+        if q.device.type == "cuda":
+            attention.plain_prompt_calls += 1
+
     out = _attend_local(
         lambda q1, k1, v1, p1: _sdpa_chunked(q1, k1, v1, p1, g, kind="causal"),
         q, (ck.to(COMPUTE_DTYPE), cv.to(COMPUTE_DTYPE)), (qp,))
     return _project_out(out, params), kv_cache
+
+
+# cached multi-token calls on a card that took the plain path instead of the
+# flash kernel (a running count: a reader takes its growth over a window)
+attention.plain_prompt_calls = 0
 
 
 # ------------------------------------------------------------------ mlp ----

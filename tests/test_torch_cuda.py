@@ -13,16 +13,20 @@ only the port need not have.)
 Tolerances: 2e-5 in fp32, 2e-2 in bf16 (atol and rtol), the repo's kernel
 bounds; the model walk holds logits to 0.02 x the logit spread.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import get_reduced  # noqa: E402
+from repro_torch.configs import get_config, get_reduced  # noqa: E402
+from repro_torch.configs import nemotron_h_47b  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as pops  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -366,6 +370,132 @@ def test_model_walk_kernel_vs_plain(dev, impls):
         spread = (lp.max(-1).values - lp.min(-1).values)
         assert torch.all((lk - lp).abs().max(-1).values < 0.02 * spread)
         tok = lp.argmax(-1)
+
+
+# prompt passes at full width: (stack, width, rows' lengths, start); the
+# lengths lie off K3's 128-row blocks, a resumed pass starts at ``start``
+PROMPT_CASES = {
+    "minitron-w1-cold": ("minitron", 1, (1041,), 0),
+    "minitron-w4-cold": ("minitron", 4, (2573, 1041, 1999, 1500), 0),
+    "minitron-w1-resumed": ("minitron", 1, (2573,), 1024),
+    "minitron-w4-resumed": ("minitron", 4, (2573,) * 4, 1536),
+    "nemotron-h-w1-cold": ("nemotron-h", 1, (2573,), 0),
+    "nemotron-h-w4-cold": ("nemotron-h", 4, (1041,) * 4, 0),
+}
+PROMPT_MAX_LEN = 4096
+
+
+@pytest.fixture(scope="module")
+def prompt_stacks():
+    """Minitron-4B at full width and 2 of its 32 layers, and Nemotron-H's
+    widths in a Mamba, an attention and an MLP layer, bf16 on the card;
+    built once (a few GB each)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    cfgs = {"minitron": dataclasses.replace(get_config("minitron-4b"),
+                                            num_layers=2),
+            "nemotron-h": dataclasses.replace(nemotron_h_47b.CONFIG,
+                                              num_layers=3,
+                                              layer_pattern="M*-")}
+    out = {}
+    for name, cfg in cfgs.items():
+        model = Model(cfg)
+        out[name] = (model, model.init(
+            torch.Generator(device=dev).manual_seed(0), torch.bfloat16,
+            device=dev))
+    yield out
+    out.clear()
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("case", list(PROMPT_CASES))
+def test_prompt_pass_on_flash_vs_plain(dev, prompt_stacks, case,
+                                       monkeypatch):
+    """A prompt pass (``prefill_batched``, or ``prefill_resume`` from a
+    donor of ``start`` tokens) with every attention layer on K3 over the
+    live keys, against the same pass forced onto ``_sdpa_chunked`` over
+    the whole masked cache.  Each attention layer's output (before its
+    projection) is held at every position of every row: the first
+    layer's, whose inputs are the same on both paths, elementwise within
+    the bf16 kernel bound (2e-2 + 2e-2 x |plain|); later layers' inputs
+    carry the attention's rounding, so their outputs and K/V are held to
+    2e-2 x max|plain|, as ``test_torch_layers.py`` holds a bf16 cache.
+    The first attention layer's K/V are bit-equal (its inputs and writes
+    are the same), the last logits within 0.02 x the logit spread, as the
+    model walk holds a kernel path to its plain one (K3 keeps the scores
+    in fp32 where the plain path rounds them to bf16).  Each path's mean
+    distance to the first layer's attention computed in fp32 from the
+    same q, K and V is printed.  K3 runs once an attention layer and
+    pass, and no prompt attention takes the plain path unless forced."""
+    stack, width, lengths, start = PROMPT_CASES[case]
+    model, params = prompt_stacks[stack]
+    n_attn = model.mixers.count("attn")
+    s = max(lengths)
+    toks = torch.randint(0, model.cfg.vocab_size, (width, s), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(7))
+    lens = torch.tensor(lengths, device=dev)
+    donor = None
+    if start:
+        _, donor = model.prefill_batched(
+            params, toks[:, :start], torch.full((width,), start, device=dev),
+            max_len=PROMPT_MAX_LEN)
+    project_out, flash_causal = L._project_out, L._flash_causal
+    inputs = []
+
+    def first_inputs(*qkv):
+        inputs.append(qkv)
+        return flash_causal(*qkv)
+
+    def run():
+        """(last logits, caches), each attention layer's output, and the
+        growth of K3's launches and of the plain prompt calls."""
+        outs = []
+
+        def recorded(out, p):
+            outs.append(out.detach().clone())
+            return project_out(out, p)
+        monkeypatch.setattr(L, "_project_out", recorded)
+        before = (fops.flash_attention.launches, L.attention.plain_prompt_calls)
+        with torch.no_grad():
+            if start:
+                out = model.prefill_resume(params, donor, toks[:, start:],
+                                           start)
+            else:
+                out = model.prefill_batched(params, toks, lens,
+                                            max_len=PROMPT_MAX_LEN)
+        return out, outs, (fops.flash_attention.launches - before[0],
+                           L.attention.plain_prompt_calls - before[1])
+
+    monkeypatch.setattr(L, "_flash_causal", first_inputs)
+    (logits, caches), attn, counts = run()
+    assert counts == (n_attn, 0)
+    monkeypatch.setattr(L, "_prompt_on_flash", lambda *a: False)
+    (want, plain), want_attn, counts = run()
+    assert counts == (0, n_attn)
+    assert len(attn) == len(want_attn) == n_attn
+    got, ref = attn[0].float(), want_attn[0].float()
+    tol = TOL[torch.bfloat16]
+    assert bool(((got - ref).abs() <= tol + tol * ref.abs()).all()), \
+        float((got - ref).abs().max())
+    for got, ref in zip(attn[1:], want_attn[1:]):
+        scale = max(1.0, float(ref.abs().max()))
+        assert float((got.float() - ref.float()).abs().max()) <= tol * scale
+    for n in "kv":
+        assert torch.equal(caches[n][0], plain[n][0]), n
+        for got, ref in zip(caches[n], plain[n]):
+            scale = max(1.0, float(ref.abs().max()))
+            assert float((got - ref).abs().max()) <= tol * scale
+    fp32 = fops.flash_attention_plain(*(t.float() for t in inputs[0]))
+    far = [float((a.float() - fp32).abs().mean()) for a in (attn[0],
+                                                             want_attn[0])]
+    err = (logits - want).abs().max(-1).values
+    spread = want.max(-1).values - want.min(-1).values
+    print(f"{case}: max |dlogit| {float(err.max()):.4g} "
+          f"({float((err / spread).max()):.4g} x spread); first attention "
+          f"layer's mean distance to fp32: K3 {far[0]:.4g}, plain "
+          f"{far[1]:.4g}")
+    assert torch.all(err < 0.02 * spread)
 
 
 @pytest.mark.parametrize("name,stub,hd", [

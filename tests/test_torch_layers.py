@@ -205,3 +205,79 @@ def test_attention_paged_decode(heads, impl):
     _close(out, ref)
     for n in "kv":
         _close(tc[n], jc[n])
+
+
+def _prompt_case(rng, cfg, width, start, s=11, t=40):
+    """fp32 attention weights, ``width`` rows of ``s`` new tokens, and a
+    cache of ``t`` positions holding random K/V (a donor's) below
+    ``start``."""
+    d, kh, hd = cfg.d_model, cfg.num_kv_heads, cfg.resolved_head_dim
+    params = _attn_params(rng, cfg)[1]
+    params = {k: ({"scale": v["scale"].float()} if isinstance(v, dict)
+                  else v.float()) for k, v in params.items()}
+    x = torch.from_numpy(rng.standard_normal((width, s, d), np.float32))
+    cache = {n: torch.zeros((width, t, kh, hd)) for n in "kv"}
+    for n in "kv":
+        cache[n][:, :start] = torch.from_numpy(
+            rng.standard_normal((width, start, kh, hd), np.float32))
+    return params, x, cache, torch.arange(s) + start
+
+
+@pytest.mark.parametrize("start", [0, 17])
+@pytest.mark.parametrize("width", [1, 3])
+def test_prompt_pass_live_keys_match_masked_cache(width, start, monkeypatch):
+    """The cached multi-token branch's flash path, forced (on the CPU the
+    wrapper runs ``flash_attention_plain``): over the live keys ``[0,
+    start + S)`` alone, with the diagonal shifted by ``start``, it gives
+    ``_sdpa_chunked``'s attention over the whole masked cache, in fp32
+    within 1e-5, and writes the cache alike."""
+    monkeypatch.setattr(TL, "COMPUTE_DTYPE", torch.float32)
+    cfg = _cfgs("g3")[1]
+    params, x, cache, pos = _prompt_case(np.random.default_rng(8), cfg,
+                                         width, start)
+    plain = {n: c.clone() for n, c in cache.items()}
+    want, plain = TL.attention(params, x, cfg, positions=pos,
+                               kv_cache=plain, write_index=start)
+    seen, kernel = [], TL.flash_attention
+
+    def flash(q, k, v, *, causal):
+        seen.append((tuple(k.shape), k.is_contiguous(), causal))
+        return kernel(q, k, v, causal=causal)
+    monkeypatch.setattr(TL, "_prompt_on_flash", lambda *a: True)
+    monkeypatch.setattr(TL, "flash_attention", flash)
+    got, cache = TL.attention(params, x, cfg, positions=pos, kv_cache=cache,
+                              write_index=start)
+    kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    assert seen == [((width, start + x.shape[1], kh, hd), True, True)]
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    for n in "kv":
+        assert torch.equal(cache[n], plain[n])
+
+
+def test_prompt_pass_on_the_cpu_takes_the_plain_path(monkeypatch):
+    """A CPU call of the cached multi-token branch runs ``_sdpa_chunked``
+    over the whole cache, as before: no flash call, nothing counted as a
+    fallback (the count is of calls on a card)."""
+    cfg = _cfgs("g3")[1]
+    rng = np.random.default_rng(9)
+    tp = _attn_params(rng, cfg)[1]
+    tx = _x(rng, 2, 11, cfg.d_model)[1]
+    kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    cache = {n: torch.zeros((2, 40, kh, hd), dtype=torch.bfloat16)
+             for n in "kv"}
+    keys, sdpa_chunked = [], TL._sdpa_chunked
+
+    def sdpa(q, k, *a, **kw):
+        keys.append(k.shape[1])
+        return sdpa_chunked(q, k, *a, **kw)
+
+    def flash(*a, **kw):
+        raise AssertionError("the flash kernel ran on the CPU")
+    monkeypatch.setattr(TL, "_sdpa_chunked", sdpa)
+    monkeypatch.setattr(TL, "flash_attention", flash)
+    before = TL.attention.plain_prompt_calls
+    TL.attention(tp, tx, cfg, positions=torch.arange(11) + 5,
+                 kv_cache=cache, write_index=5)
+    assert keys == [40]
+    assert TL.attention.plain_prompt_calls == before
+    assert not TL._prompt_on_flash(tx, tx, cache["k"], 5, 11)
